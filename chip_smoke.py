@@ -1,0 +1,413 @@
+"""Drive the PyTorch/CUDA port (`oai_analysis_2_tpu_torch`) on one NVIDIA card.
+
+    python3 chip_smoke.py        # from the root of a checkout, one card
+
+Phases, each fatal on failure (exit code 1, no result line):
+
+1. build: compile the hand-written kernels in `oai_analysis_2_tpu_torch/csrc/`
+   (one nvcc per source, all started together) and print the card's name
+   and power limit as nvidia-smi gives them;
+2. kernels: hold each kernel against its plain PyTorch version on the card at
+   the shapes the main path gives it, and time the kernel, the plain version
+   and (where one exists) one PyTorch library call computing the same
+   function, with CUDA events;
+3. small knee: the whole pipeline on a 48x96x96 knee on the card and on the
+   CPU (plain versions), compared;
+4. full knee: `KneePipeline.run` on a 160x384x384 knee against the bench
+   fixture's shell atlas, with the offline configuration's production
+   `UNet` (threshold weights, bf16) and the shipped width-24 GradICON in
+   network mode. The knee runs twice; the launch counts are zeroed just
+   before the second run and read just after it, and that run is reported.
+   Then the thickness stage runs once more, timed per substage, and the
+   knee once more under torch.profiler (the device's busy share and its
+   milliseconds by kernel).
+
+Before the last line it prints one JSON object `{"kernels": [...]}` (per
+kernel: launches on the reported run, max error against the plain version,
+kernel / plain / library milliseconds and the bound), then the card line.
+The last line is `{"ok": true, "device": {...}}`. Without a CUDA card it
+exits with code 1 and prints no result. It imports nothing of JAX.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 tensor-core
+# FLOP/s, f32 FLOP/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
+# f32 operations per point-triangle pair in the distance kernel's inner loop
+# (csrc/point_triangle.cu: plane distance 11, triple products 51, three
+# clamped edge distances 84, minima and selects 8)
+DIST_OPS_PER_PAIR = 154
+
+SLAB = (1, 48, 416, 416)  # one auto z-slab of the 160x384x384 knee
+# (name, Cin, Cout) of the segment UNet's full-resolution convs
+SEG_CONVS = [("enc0b", 32, 64), ("dec2a", 192, 64), ("dec2b", 64, 64)]
+# the finest GradICON stage's widest full-resolution conv (width 24:
+# upconv 48 + skip 48 -> 48) on the 48x96x96 registration grid
+REG_CONV = ("stage2.dec1a", (1, 48, 96, 96), 96, 48)
+DIST_SHAPE = (32_500, 65_000)  # points x triangles, production mesh sizes
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(torch, fn, reps: int) -> float:
+    """Milliseconds per call of `fn` on the card: one warm-up call, then
+    `reps` calls between two CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def check_close(name, got, want, atol, rtol) -> float:
+    """Max |got - want|; raises unless |got - want| <= atol + rtol |want|
+    everywhere."""
+    diff = (got.float() - want.float()).abs()
+    bad = diff > atol + rtol * want.float().abs()
+    err = float(diff.max())
+    if not bool(want.isfinite().all()) or not bool(got.isfinite().all()) or bool(bad.any()):
+        raise AssertionError(f"{name}: kernel disagrees with its plain version (max abs err {err}, "
+                             f"{int(bad.sum())} elements beyond atol {atol} rtol {rtol})")
+    return err
+
+
+def conv_case(torch, F, cuda_conv, name, shape, cin, cout, dtype, tol, reps):
+    """One conv shape: kernel vs plain version, times and bound."""
+    gen = torch.Generator(device="cuda").manual_seed(len(name) * 1000 + cin)
+    x = torch.randn(shape + (cin,), device="cuda", generator=gen).to(dtype)
+    k = (torch.randn((3, 3, 3, cin, cout), device="cuda", generator=gen) / (27 * cin) ** 0.5).to(dtype)
+    b = torch.randn((cout,), device="cuda", generator=gen) * 0.1
+    got = cuda_conv.conv3d(x, k, b, relu=True, out_dtype=torch.float32)
+    want = cuda_conv.conv3d_reference(x, k, b, relu=True, out_dtype=torch.float32)
+    err = check_close(f"conv3d {name}", got, want, tol, tol)
+    del got, want
+    ms = time_ms(torch, lambda: cuda_conv.conv3d(x, k, b, relu=True, out_dtype=dtype), reps)
+    plain_ms = time_ms(torch, lambda: cuda_conv.conv3d_reference(x, k, b, relu=True, out_dtype=dtype), 1)
+    # yardstick: one cuDNN call on the channels-last view of the same data
+    # (bias fused, ReLU not); never called by the port
+    x_cl = x.permute(0, 4, 1, 2, 3)
+    w_cl = k.permute(4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
+    b_lib = b.to(dtype)
+    library_ms = time_ms(torch, lambda: F.conv3d(x_cl, w_cl, b_lib, padding=1), reps)
+    voxels = int(np.prod(shape))
+    esize = x.element_size()
+    flops = 2.0 * 27 * cin * cout * voxels
+    nbytes = voxels * cin * esize + 27 * cin * cout * esize + cout * 4 + voxels * cout * esize
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    bound_ops, bound_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    del x, k, b, x_cl, w_cl
+    torch.cuda.empty_cache()
+    return {
+        "name": f"conv3d_{'bf16' if dtype == torch.bfloat16 else 'f32'}:{name}",
+        "route": "cuda",
+        "source": "oai_analysis_2_tpu_torch/csrc/conv3d.cu",
+        "replaces": "oai_analysis_2_tpu/ops/pallas_conv.py:100",
+        "shape": f"x {list(shape) + [cin]} -> Cout {cout}",
+        "launches": None,
+        "max_abs_err": err,
+        "tol": {"atol": tol, "rtol": tol},
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bound_ops, bound_bytes),
+        "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
+        "library_ms": library_ms,
+        "tflops": flops / ms * 1e-9,
+    }
+
+
+def distance_case(torch, cuda_kernels, reps):
+    n_pts, n_tri = DIST_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    # a soup of small triangles (~0.5 mm edges) and points in a 100 mm box;
+    # the kernel's work per pair does not depend on the data
+    corner = torch.rand((n_tri, 1, 3), device="cuda", generator=gen) * 100
+    tris = (corner + torch.randn((n_tri, 3, 3), device="cuda", generator=gen) * 0.5).reshape(n_tri, 9).contiguous()
+    pts = torch.rand((n_pts, 3), device="cuda", generator=gen) * 100
+    got = cuda_kernels.point_triangle_distance(pts, tris)
+    want = torch.sqrt(cuda_kernels.point_triangle_min_d2_reference(pts, tris, point_chunk=4096, tri_chunk=16384))
+    err = check_close("point_triangle", got, want, 1e-3, 1e-4)
+    ms = time_ms(torch, lambda: cuda_kernels.point_triangle_distance(pts, tris), reps)
+    plain_ms = time_ms(
+        torch, lambda: cuda_kernels.point_triangle_min_d2_reference(pts, tris, point_chunk=4096, tri_chunk=16384), 1)
+    flops = float(DIST_OPS_PER_PAIR) * n_pts * n_tri
+    nbytes = n_pts * 12 + n_tri * 36 + n_pts * 4
+    bound_ops, bound_bytes = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return {
+        "name": "point_triangle",
+        "route": "cuda",
+        "source": "oai_analysis_2_tpu_torch/csrc/point_triangle.cu",
+        "replaces": "oai_analysis_2_tpu/ops/pallas_kernels.py:34",
+        "shape": f"{n_pts} points x {n_tri} triangles",
+        "launches": None,
+        "max_abs_err": err,
+        "tol": {"atol": 1e-3, "rtol": 1e-4},
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bound_ops, bound_bytes),
+        "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
+        "library_ms": None,
+    }
+
+
+def shell_probmap(shape_zyx, r_inner=47.5, r_outer=52.5, center=None):
+    """A curved cartilage-like shell (probability ~1 between two radii,
+    limited to a polar cap) on the atlas grid (the bench fixture's,
+    bench.py:70-84)."""
+    d, h, w = shape_zyx
+    c = center or (d * 0.5, h * 0.55, w * 0.5)
+    z, y, x = np.meshgrid(
+        np.arange(d, dtype=np.float32),
+        np.arange(h, dtype=np.float32),
+        np.arange(w, dtype=np.float32),
+        indexing="ij",
+    )
+    rr = np.sqrt(((z - c[0]) * 2.4) ** 2 + (y - c[1]) ** 2 + (x - c[2]) ** 2)
+    shell = np.clip(1.0 - np.abs(rr - (r_inner + r_outer) / 2) / ((r_outer - r_inner) / 2), 0, 1)
+    cap = (y < c[1]).astype(np.float32)  # upper cap only
+    return (shell * cap).astype(np.float32)
+
+
+def knee_and_atlas(shape, fc, tc, atlas_fc, atlas_tc, seed=0):
+    """The bench fixture (bench.py:128-153): a DESS-like knee carrying two
+    shells, and an atlas with the same anatomy slightly shifted and matched
+    background texture. fc/tc/atlas_*: (r_inner, r_outer, center or None)."""
+    rng = np.random.default_rng(seed)
+    anatomy = np.maximum(shell_probmap(shape, *fc), shell_probmap(shape, *tc))
+    knee = (anatomy * 900.0 + rng.uniform(0.0, 250.0, shape)).astype(np.float32)
+    atlas_anatomy = np.maximum(shell_probmap(shape, *atlas_fc), shell_probmap(shape, *atlas_tc))
+    atlas = (atlas_anatomy * 0.78 + rng.uniform(0.0, 0.22, shape)).astype(np.float32)
+    return knee, atlas
+
+
+FULL = dict(shape=(160, 384, 384), fc=(47.5, 52.5, None), tc=(31.5, 35.5, (80, 230, 192)),
+            atlas_fc=(47.5, 52.5, (80, 206, 184)), atlas_tc=(31.5, 35.5, (80, 222, 184)))
+SMALL = dict(shape=(48, 96, 96), fc=(27.5, 31.5, (24, 53, 48)), tc=(15.5, 19.5, (24, 60, 48)),
+             atlas_fc=(27.5, 31.5, (24, 51, 46)), atlas_tc=(15.5, 19.5, (24, 57, 46)))
+
+
+def build_pipeline(device, fixture, batch_size):
+    from oai_analysis_2_tpu_torch.analysis_object import AnalysisObject
+    from oai_analysis_2_tpu_torch.core.image import image_from_array
+    from oai_analysis_2_tpu_torch.engine.pipeline import KneePipeline
+
+    knee_np, atlas_np = knee_and_atlas(**fixture)
+    spacing = (0.36, 0.36, 0.7)
+    # the offline configuration: threshold-weights production UNet (bf16)
+    ao = AnalysisObject.offline(atlas_shape="phantom:48,96,96", batch_size=batch_size, device=device)
+    atlas = image_from_array(atlas_np, spacing=spacing, device=device)
+    pipe = KneePipeline(ao.segmenter, atlas, registration_mode="auto", device=device)
+    return pipe, image_from_array(knee_np, spacing=spacing, device=device)
+
+
+def summarize(result) -> dict:
+    meshes = {"fc_inner": result.fc_inner, "fc_outer": result.fc_outer,
+              "tc_inner": result.tc_inner, "tc_outer": result.tc_outer}
+    out = {"points": {k: int(m.n_points) for k, m in meshes.items()},
+           "cells": {k: int(m.n_cells) for k, m in meshes.items()}}
+    for k, m in meshes.items():
+        if m.n_points == 0 or m.point_data is None:
+            raise AssertionError(f"empty {k} mesh")
+        t = np.asarray(m.point_data)
+        if not np.isfinite(t).all():
+            raise AssertionError(f"non-finite thickness on {k}")
+        out[f"{k}_thickness_mean_mm"] = float(t.mean())
+        out[f"{k}_thickness_median_mm"] = float(np.median(t))
+    return out
+
+
+def small_knee_check(torch):
+    """The pipeline on a small knee on the card and on the CPU (plain
+    versions of both kernels): warped probability maps within 1e-3, mesh
+    sizes within 1 %, mean thicknesses within 1 %."""
+    res = {}
+    for dev in ("cuda", "cpu"):
+        pipe, knee = build_pipeline(dev, SMALL, batch_size=4)
+        r = pipe.run(knee)
+        res[dev] = (r, summarize(r))
+    (g, gs), (c, cs) = res["cuda"], res["cpu"]
+    for name in ("fc_probmap", "tc_probmap"):
+        a, b = getattr(g, name).data.cpu(), getattr(c, name).data
+        err = float((a - b).abs().max())
+        if err > 1e-3:
+            raise AssertionError(f"small knee: {name} card vs CPU max abs err {err} > 1e-3")
+    for k, n_gpu in gs["points"].items():
+        n_cpu = cs["points"][k]
+        if abs(n_gpu - n_cpu) > 0.01 * n_cpu:
+            raise AssertionError(f"small knee: {k} has {n_gpu} points on the card, {n_cpu} on the CPU")
+        a, b = gs[f"{k}_thickness_mean_mm"], cs[f"{k}_thickness_mean_mm"]
+        if abs(a - b) > 0.01 * abs(b):
+            raise AssertionError(f"small knee: {k} mean thickness {a} on the card, {b} on the CPU")
+    return {"card": gs, "cpu": cs}
+
+
+def profile_knee(torch, pipe, knee) -> dict:
+    """One more run of the knee under torch.profiler: the device's busy time
+    (union of its event intervals) against the run's wall time, and device
+    milliseconds by kernel name. The profiler's own cost is in the wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pipe.run(knee)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    by_name, busy_us, cur = {}, 0.0, None
+    for start, end, name in spans:
+        by_name[name] = by_name.get(name, 0.0) + (end - start)
+        if cur is None or start > cur[1]:
+            busy_us += 0.0 if cur is None else cur[1] - cur[0]
+            cur = [start, end]
+        else:
+            cur[1] = max(cur[1], end)
+    busy_us += 0.0 if cur is None else cur[1] - cur[0]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return {
+        "profiled_knee_s": wall,
+        "device_events": len(spans),
+        "device_busy_s": busy_us / 1e6,
+        "device_busy_share": busy_us / 1e6 / wall if spans else None,
+        "top_device_ms": {name[:90]: us / 1e3 for name, us in top},
+    }
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script needs an NVIDIA card",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch.nn.functional as F
+
+    from oai_analysis_2_tpu_torch.ops import cuda_build, cuda_conv, cuda_kernels
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    # ---- 1. build ------------------------------------------------------------
+    card = card_line()
+    log(f"phase build: card {card}")
+    t0 = time.perf_counter()
+    cuda_build.build_all()
+    log(f"phase build: both kernels built and loaded in {time.perf_counter() - t0:.2f} s")
+
+    # ---- 2. kernels against their plain versions -----------------------------
+    t0 = time.perf_counter()
+    kernels = [conv_case(torch, F, cuda_conv, name, SLAB, cin, cout, torch.bfloat16, 2e-2, reps=5)
+               for name, cin, cout in SEG_CONVS]
+    name, shape, cin, cout = REG_CONV
+    kernels.append(conv_case(torch, F, cuda_conv, name, shape, cin, cout, torch.float32, 1e-4, reps=20))
+    kernels.append(distance_case(torch, cuda_kernels, reps=5))
+    for k in kernels:
+        log(f"phase kernels: {k['name']} [{k['shape']}] max_abs_err {k['max_abs_err']:.3g} "
+            f"kernel {k['ms']:.3f} ms, plain {k['plain_ms']:.3f} ms, library {k['library_ms']} ms, "
+            f"bound {k['bound_ms']:.3f} ms ({k['bound_by']})")
+    log(f"phase kernels: done in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 3. small knee, card vs CPU -----------------------------------------
+    t0 = time.perf_counter()
+    small = small_knee_check(torch)
+    log(f"phase small knee: card and CPU agree ({time.perf_counter() - t0:.1f} s): {json.dumps(small)}")
+
+    # ---- 4. full-size knee ---------------------------------------------------
+    t0 = time.perf_counter()
+    pipe, knee = build_pipeline("cuda", FULL, batch_size=8)
+    log(f"phase full knee: fixture and pipeline built in {time.perf_counter() - t0:.1f} s "
+        f"(registration mode {pipe.registerer.mode}, grid {pipe.reg_config.grid_shape}, "
+        f"width {pipe.reg_config.stage_width})")
+    t0 = time.perf_counter()
+    pipe.run(knee)
+    torch.cuda.synchronize()
+    log(f"phase full knee: first run {time.perf_counter() - t0:.2f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    cuda_conv.conv3d.launches = 0
+    cuda_conv.conv3d.launches_f32 = 0
+    cuda_kernels.point_triangle_min_d2.launches = 0
+    t0 = time.perf_counter()
+    result = pipe.run(knee)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {
+        "conv3d_bf16": cuda_conv.conv3d.launches - cuda_conv.conv3d.launches_f32,
+        "conv3d_f32": cuda_conv.conv3d.launches_f32,
+        "point_triangle": cuda_kernels.point_triangle_min_d2.launches,
+    }
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    for name in ("fc_probmap", "tc_probmap"):
+        data = getattr(result, name).data
+        if tuple(data.shape) != FULL["shape"] or not bool(data.isfinite().all()):
+            raise AssertionError(f"{name}: shape {tuple(data.shape)} or non-finite values")
+        if not (float(data.min()) >= 0.0 and float(data.max()) <= 1.0 and float(data.max()) > 0.5):
+            raise AssertionError(f"{name}: values outside [0, 1] or no tissue")
+    summary = summarize(result)
+    fc_med = summary["fc_inner_thickness_median_mm"]
+    if not 0.2 < fc_med < 10.0:
+        raise AssertionError(f"implausible FC thickness median {fc_med}")
+    quality = result.registration_quality
+    if not quality or not all(np.isfinite(v) for v in quality.values()):
+        raise AssertionError(f"registration quality missing or non-finite: {quality}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the main path")
+    for k in kernels:
+        k["launches"] = launches[k["name"].split(":")[0]]
+
+    report = {
+        "knee_seconds": wall,
+        "stage_seconds": {k: v["seconds"] for k, v in result.timings.items()},
+        "launches": launches,
+        "max_memory_allocated_gb": peak_gb,
+        "registration_quality": quality,
+        **summary,
+    }
+    log(f"phase full knee: second run {wall:.3f} s: {json.dumps(report)}")
+
+    # where the thickness stage's time goes: the same warped maps once more,
+    # timed per substage with the card synchronized at each substage end
+    from oai_analysis_2_tpu_torch.mesh.processing import get_thickness_meshes
+
+    substages = {}
+    get_thickness_meshes([result.fc_probmap, result.tc_probmap], ["FC", "TC"], timings_out=substages)
+    log(f"phase full knee: thickness substage seconds {json.dumps(substages)}")
+    log(f"phase full knee: profiled run {json.dumps(profile_knee(torch, pipe, knee))}")
+    log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                              "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,125 @@
+"""The PyTorch port's 3x3x3 conv and UNet against the JAX package.
+
+Inputs come from a numpy seed and go through both packages on the CPU: the
+port's plain conv (what its kernel wrapper runs for CPU tensors) against
+`models/unet3d.conv3d` (f32) and against the Pallas `conv3d_zstack` in
+interpret mode (bf16), and the port's `UNet3D` with carried weights against
+`UNet3D.apply`. The kernel itself runs only on the card
+(tests/test_torch_cuda.py).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from oai_analysis_2_tpu.models import unet3d as J
+from oai_analysis_2_tpu.ops.pallas_conv import conv3d_zstack
+from oai_analysis_2_tpu_torch.models import unet3d as T
+from oai_analysis_2_tpu_torch.ops import cuda_conv
+from oai_analysis_2_tpu_torch.utils.checkpoint import carry_params
+
+torch.set_num_threads(2)
+
+# (x shape, Cout): ragged channels, Cin = 1 as in enc0a, a batch of 2
+CASES = [((1, 6, 8, 10, 5), 7), ((2, 4, 6, 8, 16), 8), ((1, 5, 7, 6, 1), 3)]
+
+
+def _inputs(shape, cout, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 1, shape).astype(np.float32)
+    k = rng.normal(0, 0.2, (3, 3, 3, shape[-1], cout)).astype(np.float32)
+    b = rng.normal(0, 0.5, (cout,)).astype(np.float32)
+    return x, k, b
+
+
+@pytest.mark.parametrize("shape,cout", CASES)
+@pytest.mark.parametrize("use_bias", [False, True])
+def test_plain_conv_f32_matches_jax(shape, cout, use_bias):
+    x, k, b = _inputs(shape, cout)
+    p = {"kernel": jnp.asarray(k)}
+    if use_bias:
+        p["bias"] = jnp.asarray(b)
+    want = np.asarray(J.conv3d(jnp.asarray(x), p))
+    got = cuda_conv.conv3d(torch.tensor(x), torch.tensor(k), torch.tensor(b) if use_bias else None)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("shape,cout", CASES[:2])
+@pytest.mark.parametrize("relu", [False, True])
+def test_plain_conv_bf16_matches_pallas_interpret(shape, cout, relu):
+    """bf16 operands, f32 accumulation, bias + ReLU + one cast: the Pallas
+    kernel's contract, run in interpret mode."""
+    x, k, b = _inputs(shape, cout, seed=1)
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    want = conv3d_zstack(xb, jnp.asarray(k), jnp.asarray(b), relu=relu, out_dtype=jnp.float32,
+                         tz=shape[1] // 2, ty=shape[2] // 2, interpret=True)
+    xt = torch.tensor(x).to(torch.bfloat16)
+    kt = torch.tensor(k).to(torch.bfloat16)
+    got = cuda_conv.conv3d(xt, kt, torch.tensor(b), relu=relu, out_dtype=torch.float32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32), atol=3e-2, rtol=3e-2)
+    # and the bf16 output cast is the single rounding of that f32 result
+    got_bf16 = cuda_conv.conv3d(xt, kt, torch.tensor(b), relu=relu)
+    assert got_bf16.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got_bf16.float().numpy(), got.to(torch.bfloat16).float().numpy())
+
+
+def _carried_unets(spec_name, seed=0):
+    """The same random weights in the JAX param tree and on the port's module."""
+    rng = np.random.default_rng(seed)
+    jspec = J.NETWORK_SPECS[spec_name].replace(bias=True)
+    shapes = T.param_shapes(T.NETWORK_SPECS[spec_name].replace(bias=True))
+    params = {
+        name: {leaf: (rng.normal(0, 0.3, s) / np.sqrt(np.prod(s[:-1]))).astype(np.float32)
+               for leaf, s in leaves.items()}
+        for name, leaves in shapes.items()
+    }
+    return jspec, params
+
+
+@pytest.mark.parametrize("dtype,atol", [("float32", 1e-4), ("bfloat16", 5e-2)])
+def test_unet_matches_jax(dtype, atol):
+    jspec, params = _carried_unets("UNet_light4")
+    x = np.random.default_rng(3).normal(0, 1, (1, 8, 16, 12, 1)).astype(np.float32)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    want = np.asarray(J.UNet3D(jspec, compute_dtype=jdt).apply(params, jnp.asarray(x)))
+    net = T.UNet3D(T.NETWORK_SPECS["UNet_light4"].replace(bias=True), compute_dtype=tdt, device="cpu")
+    carry_params(net, params)
+    got = net(torch.tensor(x))
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), want, atol=atol, rtol=atol)
+
+
+@pytest.mark.parametrize("spec_name", ["UNet", "UNetClassWise", "UNet_light2"])
+def test_threshold_params_match_jax(spec_name):
+    jmodel = J.UNet3D(J.NETWORK_SPECS[spec_name].replace(bias=True))
+    want = J.make_threshold_params(jmodel, gain=24.0, threshold=0.5)
+    got = T.make_threshold_params(T.NETWORK_SPECS[spec_name].replace(bias=True), gain=24.0, threshold=0.5)
+    assert set(got) == set(want)
+    for name, leaves in want.items():
+        assert set(got[name]) == set(leaves)
+        for leaf, v in leaves.items():
+            np.testing.assert_array_equal(got[name][leaf], np.asarray(v))
+
+
+def test_carry_params_rejects_mismatched_tree():
+    net = T.UNet3D(T.NETWORK_SPECS["UNet_light4"].replace(bias=True), device="cpu")
+    _, params = _carried_unets("UNet_light4")
+    del params["head"]["bias"]
+    with pytest.raises(KeyError):
+        carry_params(net, params)
+
+
+def test_maxpool_floor_semantics():
+    x = np.random.default_rng(4).normal(0, 1, (1, 5, 7, 6, 3)).astype(np.float32)
+    want = np.asarray(J.maxpool2x(jnp.asarray(x)))
+    np.testing.assert_array_equal(T.maxpool2x(torch.tensor(x)).numpy(), want)
+
+
+def test_conv_wrapper_refuses_other_devices():
+    x = torch.zeros((1, 3, 3, 3, 2), device="meta")
+    with pytest.raises(ValueError):
+        cuda_conv.conv3d(x, torch.zeros((3, 3, 3, 2, 4), device="meta"))

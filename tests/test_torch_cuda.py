@@ -1,0 +1,82 @@
+"""The port's hand-written CUDA kernels against their plain PyTorch versions,
+on the card. Every test here needs an NVIDIA card (marker `cuda`) and skips
+without one. This file imports no JAX, so it also runs on a machine that
+has PyTorch with CUDA and no JAX:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from oai_analysis_2_tpu_torch.ops import cuda_conv, cuda_kernels
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+# (x shape, Cout): ragged channels, Cin = 1 as in enc0a, a batch of 2, a
+# Cout above one 64-channel block
+CONV_CASES = [((1, 6, 8, 10, 5), 7), ((2, 4, 6, 8, 16), 8), ((1, 5, 7, 6, 1), 3), ((1, 4, 5, 6, 8), 72)]
+
+
+@pytest.mark.parametrize("shape,cout", CONV_CASES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("use_bias,relu", [(True, True), (False, False)])
+def test_conv_kernel_matches_plain(card, shape, cout, dtype, tol, use_bias, relu):
+    rng = np.random.default_rng(5)
+    x = torch.tensor(rng.normal(0, 1, shape).astype(np.float32), device=card).to(dtype)
+    k = torch.tensor(rng.normal(0, 0.2, (3, 3, 3, shape[-1], cout)).astype(np.float32), device=card).to(dtype)
+    b = torch.tensor(rng.normal(0, 0.5, (cout,)).astype(np.float32), device=card) if use_bias else None
+    before = cuda_conv.conv3d.launches
+    got = cuda_conv.conv3d(x, k, b, relu=relu, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert cuda_conv.conv3d.launches == before + 1
+    want = cuda_conv.conv3d_reference(x, k, b, relu=relu, out_dtype=torch.float32)
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+    # the output cast is one rounding of the same f32 epilogue value
+    got_cast = cuda_conv.conv3d(x, k, b, relu=relu, out_dtype=dtype)
+    assert got_cast.dtype == dtype
+    torch.testing.assert_close(got_cast.float(), got.to(dtype).float(), atol=tol, rtol=tol)
+
+
+def test_conv_kernel_refuses_bad_input(card):
+    x = torch.zeros((1, 4, 4, 4, 3), device=card)
+    with pytest.raises(TypeError):
+        cuda_conv.conv3d(x, torch.zeros((3, 3, 3, 3, 2), device=card, dtype=torch.bfloat16))
+    with pytest.raises(ValueError):
+        cuda_conv.conv3d(x, torch.zeros((3, 3, 3, 4, 2), device=card))
+    with pytest.raises(ValueError):
+        cuda_conv.conv3d(x.transpose(1, 2), torch.zeros((3, 3, 3, 3, 2), device=card))
+
+
+def _soup(seed, n_tri, n_pts):
+    rng = np.random.default_rng(seed)
+    verts = rng.uniform(0, 10, (n_tri * 3, 3)).astype(np.float32)
+    verts[3:6] = verts[3]  # a point-triangle
+    verts[7] = verts[6]  # a segment-triangle
+    points = rng.uniform(-2, 12, (n_pts, 3)).astype(np.float32)
+    points[:3] = verts[:3]  # on a corner
+    return verts.reshape(-1, 9), points
+
+
+@pytest.mark.parametrize("seed,n_tri,n_pts", [(0, 300, 700), (5, 5000, 3000), (6, 3, 3), (7, 513, 129)])
+def test_distance_kernel_matches_plain(card, seed, n_tri, n_pts):
+    tris, points = _soup(seed, n_tri, n_pts)
+    p = torch.tensor(points, device=card)
+    t = torch.tensor(tris, device=card)
+    before = cuda_kernels.point_triangle_min_d2.launches
+    got = cuda_kernels.point_triangle_distance(p, t)
+    torch.cuda.synchronize()
+    assert cuda_kernels.point_triangle_min_d2.launches == before + 1
+    want = torch.sqrt(cuda_kernels.point_triangle_min_d2_reference(p, t))
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-4)

@@ -1,0 +1,121 @@
+"""The PyTorch port's network-mode registration against the JAX package.
+
+Both packages load the shipped width-24 GradICON weights and register the
+same numpy phantoms on a (16, 32, 32) grid: the two maps, the physical
+displacement field and the quality stats are compared.
+"""
+
+import warnings
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from oai_analysis_2_tpu.core.image import image_from_array as jimage
+from oai_analysis_2_tpu.engine import registration as JR
+from oai_analysis_2_tpu.models import gradicon as JG
+from oai_analysis_2_tpu_torch.core.image import image_from_array as timage
+from oai_analysis_2_tpu_torch.engine import registration as TR
+from oai_analysis_2_tpu_torch.models import gradicon as TG
+from oai_analysis_2_tpu_torch.models.synthetic import random_phantom
+
+torch.set_num_threads(2)
+
+GRID = (16, 32, 32)
+
+
+@pytest.fixture(scope="module")
+def pair():
+    a = random_phantom(np.random.default_rng(1), (20, 40, 36))
+    b = random_phantom(np.random.default_rng(2), (24, 36, 40))
+    meta_a = dict(spacing=(0.36, 0.36, 0.7), origin=(1.0, 2.0, 3.0))
+    meta_b = dict(spacing=(0.4, 0.3, 0.7), origin=(0.5, -1.0, 2.0))
+    return a, b, meta_a, meta_b
+
+
+@pytest.fixture(scope="module")
+def registrations(pair):
+    a, b, meta_a, meta_b = pair
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        jreg = JR.ICON_Registration(mode="auto", config=JG.GradICONConfig(grid_shape=GRID, stage_width=24))
+        treg = TR.ICON_Registration(mode="auto", config=TG.GradICONConfig(grid_shape=GRID, stage_width=24),
+                                    device="cpu")
+    assert jreg.mode == treg.mode == "network"
+    jphi = jreg.register(jimage(a, **meta_a), jimage(b, **meta_b))
+    tphi = treg.register(timage(a, device="cpu", **meta_a), timage(b, device="cpu", **meta_b))
+    return jreg, treg, jphi, tphi
+
+
+def test_maps_match(pair, registrations):
+    a, b, _, _ = pair
+    jreg, treg, _, _ = registrations
+    rng = np.random.default_rng(9)
+    a_g = rng.uniform(0, 1, GRID).astype(np.float32)
+    b_g = rng.uniform(0, 1, GRID).astype(np.float32)
+    jab, jba = jreg.model.both_maps(jreg.params, jnp.asarray(a_g), jnp.asarray(b_g))
+    with torch.no_grad():
+        tab, tba = treg.model.both_maps(torch.tensor(a_g), torch.tensor(b_g))
+    np.testing.assert_allclose(tab.numpy(), np.asarray(jab), atol=1e-5)
+    np.testing.assert_allclose(tba.numpy(), np.asarray(jba), atol=1e-5)
+    # the trained network moves the maps well away from the identity
+    assert np.abs(np.asarray(jab) - np.asarray(JG.identity_map(GRID))).max() > 1e-3
+
+
+def test_displacement_field_matches(registrations):
+    _, _, jphi, tphi = registrations
+    assert tphi.shape == tuple(jphi.field.shape[:3]) == GRID
+    np.testing.assert_allclose(tphi.field.numpy(), np.asarray(jphi.field), atol=1e-4)
+    for name in ("origin", "spacing", "direction"):
+        np.testing.assert_allclose(getattr(tphi, name).numpy(), np.asarray(getattr(jphi, name)), atol=1e-6)
+
+
+def test_quality_stats_match(registrations):
+    jreg, treg, _, _ = registrations
+    jq, tq = jreg.last_quality, treg.last_quality
+    assert set(jq) == set(tq)
+    for k in jq:
+        assert abs(jq[k] - tq[k]) <= 1e-3, (k, jq[k], tq[k])
+
+
+def test_config_from_shipped_metadata():
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        jreg = JR.ICON_Registration(mode="auto")
+        treg = TR.ICON_Registration(mode="auto", device="cpu")
+    assert treg.config.grid_shape == jreg.config.grid_shape == (48, 96, 96)
+    assert treg.config.stage_width == jreg.config.stage_width == 24
+    assert treg.config.scales == jreg.config.scales == (4, 2, 1)
+
+
+def test_unported_modes_raise():
+    with pytest.raises(NotImplementedError):
+        TR.ICON_Registration(mode="instance", device="cpu")
+    with pytest.raises(NotImplementedError):
+        TR.ICON_Registration(mode="network", finetune_steps=5, device="cpu")
+    with pytest.raises(ValueError):
+        TR.ICON_Registration(mode="bogus", device="cpu")
+
+
+def test_transform_algebra_matches():
+    rng = np.random.default_rng(3)
+    shape = (6, 8, 10)
+    ident = np.asarray(JG.identity_map(shape))
+    np.testing.assert_allclose(TG.identity_map(shape).numpy(), ident, atol=1e-7)
+    phi = (ident + rng.normal(0, 0.05, ident.shape)).astype(np.float32)
+    psi = (ident + rng.normal(0, 0.05, ident.shape)).astype(np.float32)
+    vol = rng.uniform(0, 1, shape).astype(np.float32)
+    pairs = [
+        (JG.warp(jnp.asarray(vol), jnp.asarray(phi)), TG.warp(torch.tensor(vol), torch.tensor(phi))),
+        (JG.compose(jnp.asarray(phi), jnp.asarray(psi)), TG.compose(torch.tensor(phi), torch.tensor(psi))),
+        (JG.downsample2x(jnp.asarray(vol)), TG.downsample2x(torch.tensor(vol))),
+        (JG.resize_field(jnp.asarray(phi), (12, 16, 20)), TG.resize_field(torch.tensor(phi), (12, 16, 20))),
+    ]
+    for want, got in pairs:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+    jq = JG.map_quality_stats(jnp.asarray(phi), jnp.asarray(psi))
+    tq = TG.map_quality_stats(torch.tensor(phi), torch.tensor(psi))
+    for k in jq:
+        np.testing.assert_allclose(float(tq[k]), float(jq[k]), atol=1e-5)
