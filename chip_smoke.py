@@ -10,21 +10,29 @@ Phases, each fatal on failure (exit code 1, no result line):
 2. kernels: hold each kernel against its plain PyTorch version on the card at
    the shapes the main path gives it, and time the kernel, the plain version
    and (where one exists) one PyTorch library call computing the same
-   function, with CUDA events;
+   function, with CUDA events. The conv has three routes
+   (`cuda_conv.conv3d_route`): the TMA + wgmma kernel `sm90` at the segment
+   UNet's three full-resolution shapes and one shape per lower level, the
+   wmma build at enc0a (Cin = 1), the f32 build at a GradICON shape. At
+   each sm90 shape it also times the wmma build (which ran those convs
+   before the sm90 route) and the sm90 kernel's loads-only build;
 3. small knee: the whole pipeline on a 48x96x96 knee on the card and on the
    CPU (plain versions), compared;
 4. full knee: `KneePipeline.run` on a 160x384x384 knee against the bench
    fixture's shell atlas, with the offline configuration's production
    `UNet` (threshold weights, bf16) and the shipped width-24 GradICON in
    network mode. The knee runs twice; the launch counts are zeroed just
-   before the second run and read just after it, and that run is reported.
+   before the second run and read just after it, and that run is reported:
+   the sm90 route must have taken every bf16 conv launch but enc0a's.
    Then the thickness stage runs once more, timed per substage, and the
    knee once more under torch.profiler (the device's busy share and its
    milliseconds by kernel).
 
 Before the last line it prints one JSON object `{"kernels": [...]}` (per
-kernel: launches on the reported run, max error against the plain version,
-kernel / plain / library milliseconds and the bound), then the card line.
+kernel and conv route: launches on the reported run, max error against the
+plain version, kernel / plain / library milliseconds and the bound; sm90
+rows add the wmma build's and the loads-only build's milliseconds), then
+the card line.
 The last line is `{"ok": true, "device": {...}}`. Without a CUDA card it
 exits with code 1 and prints no result. It imports nothing of JAX.
 """
@@ -48,12 +56,21 @@ F32_FLOPS = 67e12
 DIST_OPS_PER_PAIR = 154
 
 SLAB = (1, 48, 416, 416)  # one auto z-slab of the 160x384x384 knee
-# (name, Cin, Cout) of the segment UNet's full-resolution convs
-SEG_CONVS = [("enc0b", 32, 64), ("dec2a", 192, 64), ("dec2b", 64, 64)]
+# (name, x shape without channels, Cin, Cout) of segment-UNet convs on one
+# slab: the three full-resolution ones on the sm90 route, one per lower
+# level, and enc0a (Cin = 1) on the wmma route
+SEG_CONVS = [
+    ("enc0b", SLAB, 32, 64), ("dec2a", SLAB, 192, 64), ("dec2b", SLAB, 64, 64),
+    ("enc1b", (1, 24, 208, 208), 128, 128), ("dec0a", (1, 12, 104, 104), 768, 256),
+    ("enc3b", (1, 6, 52, 52), 512, 512), ("enc0a", SLAB, 1, 32),
+]
 # the finest GradICON stage's widest full-resolution conv (width 24:
 # upconv 48 + skip 48 -> 48) on the 48x96x96 registration grid
 REG_CONV = ("stage2.dec1a", (1, 48, 96, 96), 96, 48)
 DIST_SHAPE = (32_500, 65_000)  # points x triangles, production mesh sizes
+CONV_SOURCES = {"sm90": "oai_analysis_2_tpu_torch/csrc/conv3d_sm90.cu",
+                "wmma": "oai_analysis_2_tpu_torch/csrc/conv3d.cu",
+                "f32": "oai_analysis_2_tpu_torch/csrc/conv3d.cu"}
 
 
 def log(*args):
@@ -97,6 +114,7 @@ def check_close(name, got, want, atol, rtol) -> float:
 
 def conv_case(torch, F, cuda_conv, name, shape, cin, cout, dtype, tol, reps):
     """One conv shape: kernel vs plain version, times and bound."""
+    route = cuda_conv.conv3d_route(cin, cout, dtype)
     gen = torch.Generator(device="cuda").manual_seed(len(name) * 1000 + cin)
     x = torch.randn(shape + (cin,), device="cuda", generator=gen).to(dtype)
     k = (torch.randn((3, 3, 3, cin, cout), device="cuda", generator=gen) / (27 * cin) ** 0.5).to(dtype)
@@ -119,12 +137,23 @@ def conv_case(torch, F, cuda_conv, name, shape, cin, cout, dtype, tol, reps):
     nbytes = voxels * cin * esize + 27 * cin * cout * esize + cout * 4 + voxels * cout * esize
     peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
     bound_ops, bound_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    extra = {}
+    if route == "sm90":
+        # uncounted launches of other builds at the same shape: the wmma
+        # kernel, which ran every bf16 conv before the sm90 route, and the
+        # sm90 kernel's load pipeline alone (no wgmma, no stores)
+        extra = {
+            "was_ms": time_ms(torch, lambda: cuda_conv.launch(x, k, b, route="wmma", relu=True,
+                                                               out_dtype=dtype), reps),
+            "loads_ms": time_ms(torch, lambda: cuda_conv.launch(x, k, b, route="sm90", relu=True,
+                                                                 out_dtype=dtype, loads_only=True), reps),
+        }
     del x, k, b, x_cl, w_cl
     torch.cuda.empty_cache()
     return {
-        "name": f"conv3d_{'bf16' if dtype == torch.bfloat16 else 'f32'}:{name}",
+        "name": f"conv3d_{route}:{name}",
         "route": "cuda",
-        "source": "oai_analysis_2_tpu_torch/csrc/conv3d.cu",
+        "source": CONV_SOURCES[route],
         "replaces": "oai_analysis_2_tpu/ops/pallas_conv.py:100",
         "shape": f"x {list(shape) + [cin]} -> Cout {cout}",
         "launches": None,
@@ -136,6 +165,7 @@ def conv_case(torch, F, cuda_conv, name, shape, cin, cout, dtype, tol, reps):
         "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
         "library_ms": library_ms,
         "tflops": flops / ms * 1e-9,
+        **extra,
     }
 
 
@@ -279,6 +309,8 @@ def profile_knee(torch, pipe, knee) -> dict:
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
                    if e.device_type == DeviceType.CUDA)
     by_name, busy_us, cur = {}, 0.0, None
+    families = {"conv3d_sm90": "conv3d_sm90_kernel", "conv3d_wmma": "conv3d_bf16_kernel",
+                "conv3d_f32": "conv3d_f32_kernel", "point_triangle": "point_triangle_min_d2_kernel"}
     for start, end, name in spans:
         by_name[name] = by_name.get(name, 0.0) + (end - start)
         if cur is None or start > cur[1]:
@@ -294,6 +326,8 @@ def profile_knee(torch, pipe, knee) -> dict:
         "device_busy_s": busy_us / 1e6,
         "device_busy_share": busy_us / 1e6 / wall if spans else None,
         "top_device_ms": {name[:90]: us / 1e3 for name, us in top},
+        "kernel_device_ms": {fam: sum(us for name, us in by_name.items() if key in name) / 1e3
+                             for fam, key in families.items()},
     }
 
 
@@ -318,19 +352,22 @@ def main() -> int:
     log(f"phase build: card {card}")
     t0 = time.perf_counter()
     cuda_build.build_all()
-    log(f"phase build: both kernels built and loaded in {time.perf_counter() - t0:.2f} s")
+    log(f"phase build: {len(cuda_build.EXTRA_FLAGS)} kernel libraries built and loaded in "
+        f"{time.perf_counter() - t0:.2f} s")
 
     # ---- 2. kernels against their plain versions -----------------------------
     t0 = time.perf_counter()
-    kernels = [conv_case(torch, F, cuda_conv, name, SLAB, cin, cout, torch.bfloat16, 2e-2, reps=5)
-               for name, cin, cout in SEG_CONVS]
+    kernels = [conv_case(torch, F, cuda_conv, name, shape, cin, cout, torch.bfloat16, 2e-2,
+                         reps=5 if shape == SLAB else 20)
+               for name, shape, cin, cout in SEG_CONVS]
     name, shape, cin, cout = REG_CONV
     kernels.append(conv_case(torch, F, cuda_conv, name, shape, cin, cout, torch.float32, 1e-4, reps=20))
     kernels.append(distance_case(torch, cuda_kernels, reps=5))
     for k in kernels:
+        sm90 = f", wmma build {k['was_ms']:.3f} ms, loads alone {k['loads_ms']:.3f} ms" if "was_ms" in k else ""
         log(f"phase kernels: {k['name']} [{k['shape']}] max_abs_err {k['max_abs_err']:.3g} "
             f"kernel {k['ms']:.3f} ms, plain {k['plain_ms']:.3f} ms, library {k['library_ms']} ms, "
-            f"bound {k['bound_ms']:.3f} ms ({k['bound_by']})")
+            f"bound {k['bound_ms']:.3f} ms ({k['bound_by']}){sm90}")
     log(f"phase kernels: done in {time.perf_counter() - t0:.1f} s")
 
     # ---- 3. small knee, card vs CPU -----------------------------------------
@@ -350,15 +387,15 @@ def main() -> int:
     log(f"phase full knee: first run {time.perf_counter() - t0:.2f} s")
 
     torch.cuda.reset_peak_memory_stats()
-    cuda_conv.conv3d.launches = 0
-    cuda_conv.conv3d.launches_f32 = 0
+    cuda_conv.reset_launches()
     cuda_kernels.point_triangle_min_d2.launches = 0
     t0 = time.perf_counter()
     result = pipe.run(knee)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {
-        "conv3d_bf16": cuda_conv.conv3d.launches - cuda_conv.conv3d.launches_f32,
+        "conv3d_sm90": cuda_conv.conv3d.launches_sm90,
+        "conv3d_wmma": cuda_conv.conv3d.launches_wmma,
         "conv3d_f32": cuda_conv.conv3d.launches_f32,
         "point_triangle": cuda_kernels.point_triangle_min_d2.launches,
     }
@@ -380,6 +417,10 @@ def main() -> int:
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
+    # each UNet forward runs 14 bf16 convs, enc0a's alone on the wmma route
+    if launches["conv3d_sm90"] != 13 * launches["conv3d_wmma"]:
+        raise AssertionError(f"sm90 route took {launches['conv3d_sm90']} bf16 conv launches, "
+                             f"want 13 per enc0a launch ({launches['conv3d_wmma']})")
     for k in kernels:
         k["launches"] = launches[k["name"].split(":")[0]]
 

@@ -31,6 +31,7 @@ _COMMON_FLAGS = [
 # contraction so its arithmetic rounds op by op like the plain version
 EXTRA_FLAGS: Dict[str, List[str]] = {
     "conv3d": [],
+    "conv3d_sm90": [],
     "point_triangle": ["--fmad=false"],
 }
 

@@ -1,5 +1,5 @@
-"""3x3x3 SAME convolution: the wrapper of the Hopper kernel `csrc/conv3d.cu`
-and its plain PyTorch version.
+"""3x3x3 SAME convolution: the wrapper of the Hopper kernels
+`csrc/conv3d_sm90.cu` and `csrc/conv3d.cu`, and their plain PyTorch version.
 
 Replaces the TPU kernel `_kernel`/`conv3d_zstack`
 (`oai_analysis_2_tpu/ops/pallas_conv.py:100-243`) and keeps its contract:
@@ -7,11 +7,23 @@ NDHWC input, DHWIO weights, optional f32 bias, optional ReLU, bias + ReLU +
 ONE output cast applied to the f32 accumulator. The bf16 build has bf16
 operands and f32 accumulation; the f32 build has f32 operands and f32
 accumulation without TF32. What bounds the kernel on the card and what its
-design does about it is written at the top of the CUDA source.
+design does about it is written at the top of each CUDA source.
+
+Routes (`conv3d_route`, by channel counts and type alone):
+  * "sm90": bf16 with Cin % 16 == 0 and Cout % 64 == 0, the TMA + wgmma
+    kernel of `csrc/conv3d_sm90.cu` (every segment-UNet conv but the first).
+    It takes the weights as (27, Cout, Cin), re-laid out here per call;
+  * "wmma": any other bf16 shape (Cin = 1, ragged channels), the wmma build
+    of `csrc/conv3d.cu`;
+  * "f32": f32 operands (the GradICON stages), the CUDA-core build of
+    `csrc/conv3d.cu`.
 
 `conv3d` takes the plain version ONLY for tensors on the CPU. A CUDA tensor
-launches the kernel or raises; `conv3d.launches` counts the launches and
-`conv3d.launches_f32` the f32 build's share of them.
+launches its route's kernel or raises: no route falls back to another.
+`conv3d.launches` counts every launch, `conv3d.launches_sm90`,
+`conv3d.launches_wmma` and `conv3d.launches_f32` each route's share.
+`launch` is the uncounted launcher under `conv3d`, open to measurements
+that time a route at another's shape or the sm90 kernel's loads alone.
 """
 
 from __future__ import annotations
@@ -23,6 +35,24 @@ import torch
 import torch.nn.functional as F
 
 _DTYPES = (torch.bfloat16, torch.float32)
+ROUTES = ("sm90", "wmma", "f32")
+
+
+def conv3d_route(cin: int, cout: int, dtype: torch.dtype) -> str:
+    """The kernel that `conv3d` launches for `cin` -> `cout` channels and
+    operand type `dtype`; every spatial shape takes the same route."""
+    if dtype == torch.float32:
+        return "f32"
+    if cin % 16 == 0 and cout % 64 == 0:
+        return "sm90"
+    return "wmma"
+
+
+def sm90_weights(kernel: torch.Tensor) -> torch.Tensor:
+    """DHWIO (3, 3, 3, Cin, Cout) -> (27, Cout, Cin): tap-major, then the
+    K-major rows that the sm90 kernel's wgmma reads as its B operand."""
+    cin, cout = kernel.shape[3], kernel.shape[4]
+    return kernel.reshape(27, cin, cout).transpose(1, 2).contiguous()
 
 
 def conv3d_reference(
@@ -88,35 +118,81 @@ def conv3d(
     out_dtype = x.dtype if out_dtype is None else out_dtype
     if x.device.type == "cpu":
         return conv3d_reference(x, kernel, bias, relu=relu, out_dtype=out_dtype)
+    route = conv3d_route(x.shape[-1], kernel.shape[-1], x.dtype)
+    out = launch(x, kernel, bias, route=route, relu=relu, out_dtype=out_dtype)
+    conv3d.launches += 1
+    setattr(conv3d, f"launches_{route}", getattr(conv3d, f"launches_{route}") + 1)
+    return out
+
+
+def launch(
+    x: torch.Tensor,
+    kernel: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    *,
+    route: str,
+    relu: bool = False,
+    out_dtype: Optional[torch.dtype] = None,
+    loads_only: bool = False,
+) -> torch.Tensor:
+    """Launch `route`'s kernel on CUDA tensors, uncounted: `conv3d` calls it
+    with the route of the shape and counts the launch. Called directly, it
+    times one build at a shape another route owns, or (`loads_only`, sm90)
+    the sm90 kernel's load pipeline alone, whose output is left unwritten."""
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    if route not in ROUTES or (route == "f32") != (x.dtype == torch.float32):
+        raise ValueError(f"conv3d: route {route!r} does not take {x.dtype} operands")
+    if loads_only and route != "sm90":
+        raise ValueError("conv3d: only the sm90 route has a loads-only build")
     if x.device.type != "cuda":
         raise ValueError(f"conv3d: unsupported device {x.device}")
     _check(x, kernel, bias, out_dtype)
     from oai_analysis_2_tpu_torch.ops.cuda_build import load_library
 
-    lib = load_library("conv3d")
-    fn = lib.conv3d_bf16 if x.dtype == torch.bfloat16 else lib.conv3d_f32
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     b, d, h, w, cin = x.shape
     cout = kernel.shape[4]
     out = torch.empty((b, d, h, w, cout), dtype=out_dtype, device=x.device)
-    ptrs = [x.data_ptr(), kernel.data_ptr(), out.data_ptr()]
-    if bias is not None:
-        ptrs.append(bias.data_ptr())
-    vec_ok = int(all(p % 16 == 0 for p in ptrs))
+    bias_ptr = None if bias is None else bias.data_ptr()
+    if route == "sm90":
+        if cin % 16 or cout % 64:
+            raise ValueError(f"conv3d: the sm90 route needs Cin % 16 == 0 and Cout % 64 == 0, got {cin}, {cout}")
+        # TMA needs a 16-byte-aligned base; wt and out are fresh allocations
+        if x.data_ptr() % 16:
+            raise ValueError("conv3d: the sm90 route needs 16-byte-aligned x (check its storage offset)")
+        wt = sm90_weights(kernel)
+        fn = load_library("conv3d_sm90").conv3d_sm90
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        args = [x.data_ptr(), wt.data_ptr(), bias_ptr, out.data_ptr(), b, d, h, w, cin, cout,
+                int(relu), int(out_dtype == torch.bfloat16), int(loads_only)]
+    else:
+        lib = load_library("conv3d")
+        fn = lib.conv3d_bf16 if route == "wmma" else lib.conv3d_f32
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        ptrs = [x.data_ptr(), kernel.data_ptr(), out.data_ptr()] + ([] if bias is None else [bias_ptr])
+        vec_ok = int(all(p % 16 == 0 for p in ptrs))
+        args = [x.data_ptr(), kernel.data_ptr(), bias_ptr, out.data_ptr(), b, d, h, w, cin, cout,
+                int(relu), int(out_dtype == torch.bfloat16), vec_ok]
+    fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(
-            x.data_ptr(), kernel.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
-            b, d, h, w, cin, cout, int(relu), int(out_dtype == torch.bfloat16), vec_ok, stream,
-        )
+        err = fn(*args, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"conv3d kernel launch failed with CUDA error {err}")
-    conv3d.launches += 1
-    if x.dtype == torch.float32:
-        conv3d.launches_f32 += 1
+        raise RuntimeError(f"conv3d: {route} kernel launch failed with {_error_text(err)}")
     return out
 
 
-conv3d.launches = 0
-conv3d.launches_f32 = 0
+def _error_text(err: int) -> str:
+    if err == -1:
+        return "no cuTensorMapEncodeTiled in libcuda"
+    if err <= -1000:
+        return f"cuTensorMapEncodeTiled error {-err - 1000}"
+    return f"CUDA error {err}"
+
+
+def reset_launches() -> None:
+    """Zero the total and every route's launch count."""
+    conv3d.launches = 0
+    for route in ROUTES:
+        setattr(conv3d, f"launches_{route}", 0)
+
+
+reset_launches()

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 from oai_analysis_2_tpu.models import unet3d as J
 from oai_analysis_2_tpu.ops.pallas_conv import conv3d_zstack
 from oai_analysis_2_tpu_torch.models import unet3d as T
+from oai_analysis_2_tpu_torch.models.gradicon import _stage_spec
 from oai_analysis_2_tpu_torch.ops import cuda_conv
 from oai_analysis_2_tpu_torch.utils.checkpoint import carry_params
 
@@ -123,3 +124,72 @@ def test_conv_wrapper_refuses_other_devices():
     x = torch.zeros((1, 3, 3, 3, 2), device="meta")
     with pytest.raises(ValueError):
         cuda_conv.conv3d(x, torch.zeros((3, 3, 3, 2, 4), device="meta"))
+
+
+def _conv_shapes(spec):
+    """(name, DHWIO kernel shape) of every 3x3x3 conv of a UNet spec."""
+    return [(name, leaves["kernel"]) for name, leaves in T.param_shapes(spec).items()
+            if leaves["kernel"][:3] == (3, 3, 3)]
+
+
+SEGMENT_CONVS = _conv_shapes(T.NETWORK_SPECS["UNet"].replace(bias=True))
+GRADICON_CONVS = _conv_shapes(_stage_spec(24))
+
+
+@pytest.mark.parametrize("name,kshape", SEGMENT_CONVS, ids=[n for n, _ in SEGMENT_CONVS])
+def test_segment_unet_conv_route(name, kshape):
+    """bf16 with Cin % 16 == 0 and Cout % 64 == 0 takes the TMA + wgmma
+    kernel: every production-UNet conv but enc0a (Cin = 1), which stays on
+    the wmma build."""
+    cin, cout = kshape[3], kshape[4]
+    want = "wmma" if name == "enc0a" else "sm90"
+    assert cuda_conv.conv3d_route(cin, cout, torch.bfloat16) == want
+
+
+@pytest.mark.parametrize("name,kshape", GRADICON_CONVS, ids=[n for n, _ in GRADICON_CONVS])
+def test_gradicon_conv_route(name, kshape):
+    """The GradICON stages run in f32, whatever their widths (96 -> 192
+    would meet the sm90 shape rule in bf16)."""
+    cin, cout = kshape[3], kshape[4]
+    assert cuda_conv.conv3d_route(cin, cout, torch.float32) == "f32"
+
+
+@pytest.mark.parametrize("cin,cout,want", [(1, 32, "wmma"), (8, 64, "wmma"), (16, 48, "wmma"), (24, 64, "wmma"),
+                                           (16, 64, "sm90"), (96, 192, "sm90")])
+def test_conv_route_shape_rule(cin, cout, want):
+    assert cuda_conv.conv3d_route(cin, cout, torch.bfloat16) == want
+
+
+@pytest.mark.parametrize("dtype,route,loads_only", [
+    (torch.bfloat16, "f32", False), (torch.float32, "sm90", False), (torch.float32, "wmma", False),
+    (torch.bfloat16, "cudnn", False), (torch.bfloat16, "wmma", True),
+])
+def test_launch_rejects_a_route_that_cannot_take_the_call(dtype, route, loads_only):
+    x, k, _ = _inputs((1, 3, 4, 5, 16), 64)
+    with pytest.raises(ValueError, match="route|loads-only"):
+        cuda_conv.launch(torch.tensor(x).to(dtype), torch.tensor(k).to(dtype), route=route, loads_only=loads_only)
+
+
+def test_launch_has_no_plain_version():
+    """`launch` is the kernels' launcher: a CPU tensor raises instead of
+    taking `conv3d_reference`."""
+    x, k, _ = _inputs((1, 3, 4, 5, 16), 64)
+    with pytest.raises(ValueError, match="device"):
+        cuda_conv.launch(torch.tensor(x).to(torch.bfloat16), torch.tensor(k).to(torch.bfloat16), route="sm90")
+
+
+def test_sm90_weight_layout():
+    """(27, Cout, Cin) with tap = (kz * 3 + ky) * 3 + kx, the DHWIO order."""
+    k = torch.arange(3 * 3 * 3 * 5 * 4, dtype=torch.float32).reshape(3, 3, 3, 5, 4)
+    wt = cuda_conv.sm90_weights(k)
+    assert tuple(wt.shape) == (27, 4, 5) and wt.is_contiguous()
+    for kz, ky, kx, ci, co in [(0, 0, 0, 0, 0), (2, 1, 0, 4, 3), (1, 2, 2, 3, 1), (2, 2, 2, 4, 3)]:
+        assert wt[(kz * 3 + ky) * 3 + kx, co, ci] == k[kz, ky, kx, ci, co]
+
+
+def test_cpu_conv_launches_no_kernel():
+    x, k, b = _inputs((1, 3, 4, 5, 16), 64)
+    cuda_conv.reset_launches()
+    cuda_conv.conv3d(torch.tensor(x).to(torch.bfloat16), torch.tensor(k).to(torch.bfloat16), torch.tensor(b))
+    assert cuda_conv.conv3d.launches == 0
+    assert all(getattr(cuda_conv.conv3d, f"launches_{r}") == 0 for r in cuda_conv.ROUTES)

@@ -49,6 +49,81 @@ def test_conv_kernel_matches_plain(card, shape, cout, dtype, tol, use_bias, relu
     torch.testing.assert_close(got_cast.float(), got.to(dtype).float(), atol=tol, rtol=tol)
 
 
+# (x shape, Cout) for the TMA + wgmma route (bf16, Cin % 16 == 0, Cout % 64
+# == 0): 32-channel chunks (enc0b), 64-channel chunks, 3 and 12 chunks per
+# tap, 16-channel chunks, Cin 96 as 32-channel chunks; Cout 64 (one 64-wide
+# block), 128 and 256 (128-wide blocks), 192 (three 64-wide blocks);
+# spatial sizes that no box divides, a batch of 2, a single z plane (both
+# out-of-volume z taps skipped)
+SM90_CASES = [
+    ((1, 5, 7, 37, 32), 64),
+    ((2, 3, 13, 50, 64), 128),
+    ((1, 5, 7, 37, 192), 256),
+    ((1, 3, 13, 50, 768), 64),
+    ((2, 4, 9, 20, 32), 128),
+    ((1, 6, 17, 40, 16), 64),
+    ((1, 1, 8, 32, 64), 64),
+    ((1, 4, 10, 70, 96), 192),
+]
+
+
+@pytest.mark.parametrize("shape,cout", SM90_CASES)
+@pytest.mark.parametrize("use_bias,relu", [(True, True), (False, False)])
+def test_sm90_conv_matches_plain(card, shape, cout, use_bias, relu):
+    cin = shape[-1]
+    assert cuda_conv.conv3d_route(cin, cout, torch.bfloat16) == "sm90"
+    rng = np.random.default_rng(11)
+    x = torch.tensor(rng.normal(0, 1, shape).astype(np.float32), device=card).to(torch.bfloat16)
+    k = torch.tensor(rng.normal(0, 1, (3, 3, 3, cin, cout)).astype(np.float32) / np.sqrt(27 * cin),
+                     device=card).to(torch.bfloat16)
+    b = torch.tensor(rng.normal(0, 0.5, (cout,)).astype(np.float32), device=card) if use_bias else None
+    before, before_sm90 = cuda_conv.conv3d.launches, cuda_conv.conv3d.launches_sm90
+    got = cuda_conv.conv3d(x, k, b, relu=relu, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert cuda_conv.conv3d.launches == before + 1
+    assert cuda_conv.conv3d.launches_sm90 == before_sm90 + 1
+    want = cuda_conv.conv3d_reference(x, k, b, relu=relu, out_dtype=torch.float32)
+    torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
+    got_bf16 = cuda_conv.conv3d(x, k, b, relu=relu, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert cuda_conv.conv3d.launches_sm90 == before_sm90 + 2
+    assert got_bf16.dtype == torch.bfloat16
+    torch.testing.assert_close(got_bf16.float(), got.to(torch.bfloat16).float(), atol=2e-2, rtol=2e-2)
+
+
+def test_uncounted_launches_at_an_sm90_shape(card):
+    """The measurements' launches: the wmma build at an sm90 shape agrees
+    with the sm90 route, the loads-only build runs to its end, and neither
+    moves a launch count."""
+    shape, cout = (1, 5, 7, 37, 64), 128
+    rng = np.random.default_rng(13)
+    x = torch.tensor(rng.normal(0, 1, shape).astype(np.float32), device=card).to(torch.bfloat16)
+    k = torch.tensor(rng.normal(0, 1, (3, 3, 3, 64, cout)).astype(np.float32) / np.sqrt(27 * 64),
+                     device=card).to(torch.bfloat16)
+    b = torch.tensor(rng.normal(0, 0.5, (cout,)).astype(np.float32), device=card)
+    want = cuda_conv.conv3d(x, k, b, relu=True, out_dtype=torch.float32)
+    before = {r: getattr(cuda_conv.conv3d, f"launches_{r}") for r in cuda_conv.ROUTES}
+    got = cuda_conv.launch(x, k, b, route="wmma", relu=True, out_dtype=torch.float32)
+    cuda_conv.launch(x, k, b, route="sm90", relu=True, out_dtype=torch.float32, loads_only=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
+    assert {r: getattr(cuda_conv.conv3d, f"launches_{r}") for r in cuda_conv.ROUTES} == before
+
+
+def test_sm90_conv_refuses_misaligned_input(card):
+    """A storage offset of one bf16 element breaks TMA's 16-byte alignment:
+    the wrapper raises, it does not fall back to another kernel."""
+    shape = (1, 3, 5, 9, 64)
+    base = torch.zeros(int(np.prod(shape)) + 1, device=card, dtype=torch.bfloat16)
+    x = base[1:].view(shape)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    k = torch.zeros((3, 3, 3, 64, 64), device=card, dtype=torch.bfloat16)
+    before = {r: getattr(cuda_conv.conv3d, f"launches_{r}") for r in cuda_conv.ROUTES}
+    with pytest.raises(ValueError, match="aligned"):
+        cuda_conv.conv3d(x, k)
+    assert {r: getattr(cuda_conv.conv3d, f"launches_{r}") for r in cuda_conv.ROUTES} == before
+
+
 def test_conv_kernel_refuses_bad_input(card):
     x = torch.zeros((1, 4, 4, 4, 3), device=card)
     with pytest.raises(TypeError):
