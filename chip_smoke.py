@@ -13,9 +13,12 @@ Phases, each fatal on failure (exit code 1, no result line):
    function, with CUDA events. The conv has three routes
    (`cuda_conv.conv3d_route`): the TMA + wgmma kernel `sm90` at the segment
    UNet's three full-resolution shapes and one shape per lower level, the
-   wmma build at enc0a (Cin = 1), the f32 build at a GradICON shape. At
-   each sm90 shape it also times the wmma build (which ran those convs
-   before the sm90 route) and the sm90 kernel's loads-only build;
+   wmma build at enc0a (Cin = 1), the f32 kernel at each of the ten convs
+   of the finest GradICON stage (from the stage spec, at their grid
+   sizes). At each sm90 shape it also times the wmma build (which ran
+   those convs before the sm90 route) and the sm90 kernel's loads-only
+   build; at each f32 shape and at the distance shape, the build that the
+   kernel replaced (`was_ms`, uncounted launches);
 3. small knee: the whole pipeline on a 48x96x96 knee on the card and on the
    CPU (plain versions), compared;
 4. full knee: `KneePipeline.run` on a 160x384x384 knee against the bench
@@ -26,13 +29,14 @@ Phases, each fatal on failure (exit code 1, no result line):
    the sm90 route must have taken every bf16 conv launch but enc0a's.
    Then the thickness stage runs once more, timed per substage, and the
    knee once more under torch.profiler (the device's busy share and its
-   milliseconds by kernel).
+   milliseconds by kernel), which must show the f32 conv and distance
+   time in their kernels and none in the builds those replaced.
 
 Before the last line it prints one JSON object `{"kernels": [...]}` (per
 kernel and conv route: launches on the reported run, max error against the
-plain version, kernel / plain / library milliseconds and the bound; sm90
-rows add the wmma build's and the loads-only build's milliseconds), then
-the card line.
+plain version, kernel / plain / library milliseconds and the bound; sm90,
+f32 and distance rows add the replaced build's milliseconds, sm90 rows the
+loads-only build's), then the card line.
 The last line is `{"ok": true, "device": {...}}`. Without a CUDA card it
 exits with code 1 and prints no result. It imports nothing of JAX.
 """
@@ -50,10 +54,18 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
-# f32 operations per point-triangle pair in the distance kernel's inner loop
-# (csrc/point_triangle.cu: plane distance 11, triple products 51, three
-# clamped edge distances 84, minima and selects 8)
-DIST_OPS_PER_PAIR = 154
+# the least f32 operations per point-triangle pair that the distance
+# kernel's inner loop needs (csrc/point_triangle.cu), an FMA counted as 2,
+# every other add, multiply, min or compare as 1: q = a - p 3; plane
+# t = q.n 5 and t * t / n.n 2; triple products d2 = q.m2, d3 = q.m3 5 each
+# and d1 = n.n - d2 - d3 2; inside = min(d1, d2, d3) >= 0 3; edge ab: u.w
+# 5, the saturated t 1, r = u + t w 6, r.r 5 (17); edges bc and ca 3 more
+# each for u (20, 20); the nearest edge 2; the running minimum 1 (the
+# choice of plane or edge costs no instruction: the compiler predicates
+# the minimum). Total 85, as `tools/port_kernel_report.py` counts in the
+# built loop (27 FFMA, 11 FADD, 11 FMUL, 3 FMUL.SAT, 5 FMNMX, 1 FSETP a
+# pair); the build it replaced needed 154, without FMA.
+DIST_OPS_PER_PAIR = 85
 
 SLAB = (1, 48, 416, 416)  # one auto z-slab of the 160x384x384 knee
 # (name, x shape without channels, Cin, Cout) of segment-UNet convs on one
@@ -64,13 +76,12 @@ SEG_CONVS = [
     ("enc1b", (1, 24, 208, 208), 128, 128), ("dec0a", (1, 12, 104, 104), 768, 256),
     ("enc3b", (1, 6, 52, 52), 512, 512), ("enc0a", SLAB, 1, 32),
 ]
-# the finest GradICON stage's widest full-resolution conv (width 24:
-# upconv 48 + skip 48 -> 48) on the 48x96x96 registration grid
-REG_CONV = ("stage2.dec1a", (1, 48, 96, 96), 96, 48)
+REG_GRID = (48, 96, 96)  # the registration grid; the finest stage (scale 1) runs on it
+REG_WIDTH = 24  # the shipped GradICON's stage width (oai_analysis_2_tpu/weights/gradicon.npz)
 DIST_SHAPE = (32_500, 65_000)  # points x triangles, production mesh sizes
 CONV_SOURCES = {"sm90": "oai_analysis_2_tpu_torch/csrc/conv3d_sm90.cu",
                 "wmma": "oai_analysis_2_tpu_torch/csrc/conv3d.cu",
-                "f32": "oai_analysis_2_tpu_torch/csrc/conv3d.cu"}
+                "f32": "oai_analysis_2_tpu_torch/csrc/conv3d_f32.cu"}
 
 
 def log(*args):
@@ -100,6 +111,35 @@ def time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def clock_under_load(torch, fn, reps: int) -> dict:
+    """The SM clock (MHz) and power draw (W) that nvidia-smi samples every
+    50 ms while `fn` runs `reps` times back to back: medians over the
+    samples; None where nvidia-smi gives none. The sampler is stopped
+    before this returns."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader,nounits", "-lms", "50"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True,
+    )
+    try:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        out, _ = proc.communicate(timeout=60)
+    samples = []
+    for line in out.splitlines():
+        try:
+            samples.append([float(v) for v in line.split(",")])
+        except ValueError:
+            continue
+    samples = [v for v in samples if len(v) == 2]
+    if not samples:
+        return {"sm_clock_mhz": None, "power_w": None}
+    return {"sm_clock_mhz": float(np.median([v[0] for v in samples])),
+            "power_w": float(np.median([v[1] for v in samples]))}
+
+
 def check_close(name, got, want, atol, rtol) -> float:
     """Max |got - want|; raises unless |got - want| <= atol + rtol |want|
     everywhere."""
@@ -112,7 +152,27 @@ def check_close(name, got, want, atol, rtol) -> float:
     return err
 
 
-def conv_case(torch, F, cuda_conv, name, shape, cin, cout, dtype, tol, reps):
+def gradicon_convs(width=REG_WIDTH, grid=REG_GRID):
+    """(name, x shape without channels, Cin, Cout) of every 3x3x3 conv of the
+    finest GradICON stage, from the port's stage spec: a conv of encoder
+    level l, or of the decoder level whose skip comes from l, runs on the
+    grid halved l times (maxpool floors odd sizes)."""
+    from oai_analysis_2_tpu_torch.models.gradicon import _stage_spec
+    from oai_analysis_2_tpu_torch.models.unet3d import param_shapes
+
+    spec = _stage_spec(width)
+    convs = []
+    for name, leaves in param_shapes(spec).items():
+        kshape = leaves["kernel"]
+        if kshape[:3] != (3, 3, 3):
+            continue
+        li = int(name[3])
+        level = li if name.startswith("enc") else len(spec.enc) - 2 - li
+        convs.append((f"stage2.{name}", (1,) + tuple(g >> level for g in grid), kshape[3], kshape[4]))
+    return convs
+
+
+def conv_case(torch, F, cuda_conv, name, shape, cin, cout, dtype, tol, reps, clock=False):
     """One conv shape: kernel vs plain version, times and bound."""
     route = cuda_conv.conv3d_route(cin, cout, dtype)
     gen = torch.Generator(device="cuda").manual_seed(len(name) * 1000 + cin)
@@ -138,6 +198,18 @@ def conv_case(torch, F, cuda_conv, name, shape, cin, cout, dtype, tol, reps):
     peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
     bound_ops, bound_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     extra = {}
+    if route == "f32":
+        # uncounted launches: the f32 build that this route replaced, and the
+        # kernel's multiplies alone (no copies; the output is garbage)
+        extra = {
+            "was_ms": time_ms(torch, lambda: cuda_conv.launch(x, k, b, route="f32_was", relu=True,
+                                                               out_dtype=dtype), reps),
+            "compute_ms": time_ms(torch, lambda: cuda_conv.launch(x, k, b, route="f32", relu=True,
+                                                                   out_dtype=dtype, compute_only=True), reps),
+        }
+        if clock:
+            extra.update(clock_under_load(torch, lambda: cuda_conv.conv3d(x, k, b, relu=True, out_dtype=dtype),
+                                          int(1500 / ms) + 1))
     if route == "sm90":
         # uncounted launches of other builds at the same shape: the wmma
         # kernel, which ran every bf16 conv before the sm90 route, and the
@@ -181,6 +253,9 @@ def distance_case(torch, cuda_kernels, reps):
     want = torch.sqrt(cuda_kernels.point_triangle_min_d2_reference(pts, tris, point_chunk=4096, tri_chunk=16384))
     err = check_close("point_triangle", got, want, 1e-3, 1e-4)
     ms = time_ms(torch, lambda: cuda_kernels.point_triangle_distance(pts, tris), reps)
+    # the build the kernel replaced, uncounted, in the same call
+    was_ms = time_ms(torch, lambda: torch.sqrt(cuda_kernels.point_triangle_launch(pts, tris, build="was")), reps)
+    clock = clock_under_load(torch, lambda: cuda_kernels.point_triangle_distance(pts, tris), int(1500 / ms) + 1)
     plain_ms = time_ms(
         torch, lambda: cuda_kernels.point_triangle_min_d2_reference(pts, tris, point_chunk=4096, tri_chunk=16384), 1)
     flops = float(DIST_OPS_PER_PAIR) * n_pts * n_tri
@@ -200,6 +275,9 @@ def distance_case(torch, cuda_kernels, reps):
         "bound_ms": max(bound_ops, bound_bytes),
         "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
         "library_ms": None,
+        "was_ms": was_ms,
+        "ops_per_pair": DIST_OPS_PER_PAIR,
+        **clock,
     }
 
 
@@ -309,8 +387,11 @@ def profile_knee(torch, pipe, knee) -> dict:
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
                    if e.device_type == DeviceType.CUDA)
     by_name, busy_us, cur = {}, 0.0, None
+    # the "was" families are the builds that the f32 and distance kernels
+    # replaced: the main path must not reach them
     families = {"conv3d_sm90": "conv3d_sm90_kernel", "conv3d_wmma": "conv3d_bf16_kernel",
-                "conv3d_f32": "conv3d_f32_kernel", "point_triangle": "point_triangle_min_d2_kernel"}
+                "conv3d_f32": "conv3d_f32_ring_kernel", "point_triangle": "point_triangle_min_d2_fma_kernel",
+                "conv3d_f32_was": "conv3d_f32_kernel", "point_triangle_was": "point_triangle_min_d2_kernel"}
     for start, end, name in spans:
         by_name[name] = by_name.get(name, 0.0) + (end - start)
         if cur is None or start > cur[1]:
@@ -360,14 +441,18 @@ def main() -> int:
     kernels = [conv_case(torch, F, cuda_conv, name, shape, cin, cout, torch.bfloat16, 2e-2,
                          reps=5 if shape == SLAB else 20)
                for name, shape, cin, cout in SEG_CONVS]
-    name, shape, cin, cout = REG_CONV
-    kernels.append(conv_case(torch, F, cuda_conv, name, shape, cin, cout, torch.float32, 1e-4, reps=20))
+    kernels += [conv_case(torch, F, cuda_conv, name, shape, cin, cout, torch.float32, 1e-4, reps=20,
+                          clock=name == "stage2.dec1a")
+                for name, shape, cin, cout in gradicon_convs()]
     kernels.append(distance_case(torch, cuda_kernels, reps=5))
     for k in kernels:
-        sm90 = f", wmma build {k['was_ms']:.3f} ms, loads alone {k['loads_ms']:.3f} ms" if "was_ms" in k else ""
+        more = f", was {k['was_ms']:.3f} ms" if "was_ms" in k else ""
+        more += f", loads alone {k['loads_ms']:.3f} ms" if "loads_ms" in k else ""
+        more += f", multiplies alone {k['compute_ms']:.3f} ms" if "compute_ms" in k else ""
+        more += f", SM clock {k['sm_clock_mhz']} MHz at {k['power_w']} W" if "sm_clock_mhz" in k else ""
         log(f"phase kernels: {k['name']} [{k['shape']}] max_abs_err {k['max_abs_err']:.3g} "
             f"kernel {k['ms']:.3f} ms, plain {k['plain_ms']:.3f} ms, library {k['library_ms']} ms, "
-            f"bound {k['bound_ms']:.3f} ms ({k['bound_by']}){sm90}")
+            f"bound {k['bound_ms']:.3f} ms ({k['bound_by']}){more}")
     log(f"phase kernels: done in {time.perf_counter() - t0:.1f} s")
 
     # ---- 3. small knee, card vs CPU -----------------------------------------
@@ -441,7 +526,13 @@ def main() -> int:
     substages = {}
     get_thickness_meshes([result.fc_probmap, result.tc_probmap], ["FC", "TC"], timings_out=substages)
     log(f"phase full knee: thickness substage seconds {json.dumps(substages)}")
-    log(f"phase full knee: profiled run {json.dumps(profile_knee(torch, pipe, knee))}")
+    profiled = profile_knee(torch, pipe, knee)
+    log(f"phase full knee: profiled run {json.dumps(profiled)}")
+    device_ms = profiled["kernel_device_ms"]
+    for fam in ("conv3d_f32", "point_triangle"):
+        if not device_ms[fam] > 0.0 or device_ms[f"{fam}_was"] != 0.0:
+            raise AssertionError(f"profiled knee: {fam} ran {device_ms[fam]} ms in its kernel and "
+                                 f"{device_ms[fam + '_was']} ms in the build it replaced")
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -27,12 +27,15 @@ _COMMON_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
-# per-source extra flags: the distance kernel is built without FMA
-# contraction so its arithmetic rounds op by op like the plain version
+# per-source extra flags: the distance kernel's "was" build keeps the
+# flags it was measured with (no FMA contraction, each multiply and add
+# rounded op by op like the plain version)
 EXTRA_FLAGS: Dict[str, List[str]] = {
     "conv3d": [],
+    "conv3d_f32": [],
     "conv3d_sm90": [],
-    "point_triangle": ["--fmad=false"],
+    "point_triangle": [],
+    "point_triangle_was": ["--fmad=false"],
 }
 
 _lock = threading.Lock()

@@ -1,5 +1,6 @@
 """3x3x3 SAME convolution: the wrapper of the Hopper kernels
-`csrc/conv3d_sm90.cu` and `csrc/conv3d.cu`, and their plain PyTorch version.
+`csrc/conv3d_sm90.cu`, `csrc/conv3d_f32.cu` and `csrc/conv3d.cu`, and their
+plain PyTorch version.
 
 Replaces the TPU kernel `_kernel`/`conv3d_zstack`
 (`oai_analysis_2_tpu/ops/pallas_conv.py:100-243`) and keeps its contract:
@@ -15,15 +16,18 @@ Routes (`conv3d_route`, by channel counts and type alone):
     It takes the weights as (27, Cout, Cin), re-laid out here per call;
   * "wmma": any other bf16 shape (Cin = 1, ragged channels), the wmma build
     of `csrc/conv3d.cu`;
-  * "f32": f32 operands (the GradICON stages), the CUDA-core build of
-    `csrc/conv3d.cu`.
+  * "f32": f32 operands (the GradICON stages), the CUDA-core kernel of
+    `csrc/conv3d_f32.cu` (cp.async ring, 8 x 8 register tiles, the tile
+    chosen by `f32_tile`).
 
 `conv3d` takes the plain version ONLY for tensors on the CPU. A CUDA tensor
 launches its route's kernel or raises: no route falls back to another.
 `conv3d.launches` counts every launch, `conv3d.launches_sm90`,
 `conv3d.launches_wmma` and `conv3d.launches_f32` each route's share.
 `launch` is the uncounted launcher under `conv3d`, open to measurements
-that time a route at another's shape or the sm90 kernel's loads alone.
+that time a route at another's shape, the sm90 kernel's loads alone, or
+the f32 build that the "f32" route replaced (route "f32_was", the
+CUDA-core build of `csrc/conv3d.cu`).
 """
 
 from __future__ import annotations
@@ -36,6 +40,11 @@ import torch.nn.functional as F
 
 _DTYPES = (torch.bfloat16, torch.float32)
 ROUTES = ("sm90", "wmma", "f32")
+# what `launch` takes: the routes, and the f32 build that the "f32" route
+# replaced (the CUDA-core kernel of csrc/conv3d.cu), which `conv3d` never takes
+BUILDS = ROUTES + ("f32_was",)
+_F32_TILE_OUTPUTS = 12288  # BM * BN of csrc/conv3d_f32.cu: 192 threads of 8 x 8
+_SMS = 132  # streaming multiprocessors of an H100 SXM
 
 
 def conv3d_route(cin: int, cout: int, dtype: torch.dtype) -> str:
@@ -46,6 +55,27 @@ def conv3d_route(cin: int, cout: int, dtype: torch.dtype) -> str:
     if cin % 16 == 0 and cout % 64 == 0:
         return "sm90"
     return "wmma"
+
+
+def f32_tile(cout: int, voxels: int) -> tuple:
+    """(BM voxels, BN channels, KS K groups) of the f32 kernel's block for
+    `cout` output channels over `voxels` output voxels: of BN = 96, 48, 24
+    the one that pads Cout least (the wider on a tie) and BM = 12288 / BN;
+    where that gives fewer than two blocks per SM of an H100, BM is halved,
+    and K is split inside the block in 2 groups, or 4 (2 at BN = 24) where
+    the blocks do not reach one per SM."""
+    bn = min((96, 48, 24), key=lambda n: (-(-cout // n) * n, -n))
+    bm = _F32_TILE_OUTPUTS // bn
+
+    def blocks(rows):
+        return -(-voxels // rows) * -(-cout // bn)
+
+    if blocks(bm) >= 2 * _SMS:
+        return bm, bn, 1
+    bm //= 2
+    if blocks(bm) >= 2 * _SMS:
+        return bm, bn, 1
+    return bm, bn, 2 if blocks(bm) >= _SMS or bn == 24 else 4
 
 
 def sm90_weights(kernel: torch.Tensor) -> torch.Tensor:
@@ -134,16 +164,22 @@ def launch(
     relu: bool = False,
     out_dtype: Optional[torch.dtype] = None,
     loads_only: bool = False,
+    compute_only: bool = False,
 ) -> torch.Tensor:
     """Launch `route`'s kernel on CUDA tensors, uncounted: `conv3d` calls it
     with the route of the shape and counts the launch. Called directly, it
-    times one build at a shape another route owns, or (`loads_only`, sm90)
-    the sm90 kernel's load pipeline alone, whose output is left unwritten."""
+    times one build at a shape another route owns, the f32 build that the
+    "f32" route replaced (route="f32_was"), or (`loads_only`, sm90) the sm90
+    kernel's load pipeline alone, whose output is left unwritten, or
+    (`compute_only`, f32) the f32 kernel's multiplies alone, without its
+    copies, whose output is garbage."""
     out_dtype = x.dtype if out_dtype is None else out_dtype
-    if route not in ROUTES or (route == "f32") != (x.dtype == torch.float32):
+    if route not in BUILDS or route.startswith("f32") != (x.dtype == torch.float32):
         raise ValueError(f"conv3d: route {route!r} does not take {x.dtype} operands")
     if loads_only and route != "sm90":
         raise ValueError("conv3d: only the sm90 route has a loads-only build")
+    if compute_only and route != "f32":
+        raise ValueError("conv3d: only the f32 route has a compute-only build")
     if x.device.type != "cuda":
         raise ValueError(f"conv3d: unsupported device {x.device}")
     _check(x, kernel, bias, out_dtype)
@@ -165,13 +201,18 @@ def launch(
         args = [x.data_ptr(), wt.data_ptr(), bias_ptr, out.data_ptr(), b, d, h, w, cin, cout,
                 int(relu), int(out_dtype == torch.bfloat16), int(loads_only)]
     else:
-        lib = load_library("conv3d")
-        fn = lib.conv3d_bf16 if route == "wmma" else lib.conv3d_f32
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         ptrs = [x.data_ptr(), kernel.data_ptr(), out.data_ptr()] + ([] if bias is None else [bias_ptr])
         vec_ok = int(all(p % 16 == 0 for p in ptrs))
         args = [x.data_ptr(), kernel.data_ptr(), bias_ptr, out.data_ptr(), b, d, h, w, cin, cout,
-                int(relu), int(out_dtype == torch.bfloat16), vec_ok]
+                int(relu), int(out_dtype == torch.bfloat16)]
+        if route == "f32":
+            fn = load_library("conv3d_f32").conv3d_f32
+            args += [*f32_tile(cout, b * d * h * w), vec_ok, int(compute_only)]
+        else:
+            lib = load_library("conv3d")
+            fn = lib.conv3d_bf16 if route == "wmma" else lib.conv3d_f32
+            args.append(vec_ok)
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * (len(args) - 4) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
         err = fn(*args, torch.cuda.current_stream(x.device).cuda_stream)
@@ -183,6 +224,8 @@ def launch(
 def _error_text(err: int) -> str:
     if err == -1:
         return "no cuTensorMapEncodeTiled in libcuda"
+    if err == -2:
+        return "a tile the f32 kernel was not built for"
     if err <= -1000:
         return f"cuTensorMapEncodeTiled error {-err - 1000}"
     return f"CUDA error {err}"

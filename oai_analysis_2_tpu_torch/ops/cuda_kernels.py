@@ -11,7 +11,9 @@ what its design does about it is written at the top of the CUDA source.
 
 `point_triangle_min_d2` takes the plain version ONLY for tensors on the
 CPU. A CUDA tensor launches the kernel or raises;
-`point_triangle_min_d2.launches` counts the launches.
+`point_triangle_min_d2.launches` counts the launches. Under it,
+`point_triangle_launch` is the uncounted launcher; only a measurement calls
+it with build="was", the kernel's predecessor (`csrc/point_triangle_was.cu`).
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch
 
 _TINY = 1e-30
 _INF_BITS = 0x7F800000  # +inf as float32 bits
-_TARGET_BLOCKS = 8 * 132  # several blocks per SM of an H100
+_TARGET_BLOCKS = 8 * 132  # the "was" build's split: several blocks per SM of an H100
 
 
 def _pair_d2(p: torch.Tensor, tri: torch.Tensor) -> torch.Tensor:
@@ -80,37 +82,58 @@ def point_triangle_min_d2_reference(
     return out
 
 
+BUILDS = {
+    # build: (library, C function, points per block where the wrapper
+    # chooses the triangle split, None where the kernel's launcher does)
+    "fma": ("point_triangle", "point_triangle_min_d2", None),
+    "was": ("point_triangle_was", "point_triangle_min_d2_was", 128),
+}
+
+
+def point_triangle_launch(points: torch.Tensor, tris: torch.Tensor, *, build: str = "fma") -> torch.Tensor:
+    """Launch one build of the distance kernel on CUDA tensors, uncounted:
+    `point_triangle_min_d2` calls it with the "fma" build (csrc/
+    point_triangle.cu) and counts the launch. Called directly with
+    build="was", it times the build that kernel replaced
+    (csrc/point_triangle_was.cu)."""
+    if build not in BUILDS:
+        raise ValueError(f"point_triangle: unknown build {build!r}")
+    for name, t, cols in (("points", points, 3), ("tris", tris, 9)):
+        if t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != cols:
+            raise TypeError(f"point_triangle: {name} must be f32 (N, {cols}), got {t.dtype} {tuple(t.shape)}")
+        if t.device != points.device or not t.is_contiguous():
+            raise ValueError(f"point_triangle: {name} must be contiguous on {points.device}")
+        if t.shape[0] >= 2**31 // 9:
+            raise ValueError(f"point_triangle: too many {name}")
+    if points.device.type != "cuda":
+        raise ValueError(f"point_triangle: unsupported device {points.device}")
+    from oai_analysis_2_tpu_torch.ops.cuda_build import load_library
+
+    lib_name, fn_name, per_block = BUILDS[build]
+    fn = getattr(load_library(lib_name), fn_name)
+    n_pts, n_tris = points.shape[0], tris.shape[0]
+    bits = torch.full((n_pts,), _INF_BITS, dtype=torch.int32, device=points.device)
+    args = [points.data_ptr(), tris.data_ptr(), n_pts, n_tris]
+    if per_block is not None:
+        args.append(max(1, -(-_TARGET_BLOCKS // max(1, -(-n_pts // per_block)))))
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * (len(args) - 2) + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(points.device):
+        stream = torch.cuda.current_stream(points.device).cuda_stream
+        err = fn(*args, bits.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"point_triangle: {build} kernel launch failed with CUDA error {err}")
+    return bits.view(torch.float32)
+
+
 def point_triangle_min_d2(points: torch.Tensor, tris: torch.Tensor) -> torch.Tensor:
     """(P, 3) f32 points, (T, 9) f32 triangles (a, b, c corners, xyz each)
     -> (P,) minimum squared point-to-triangle distances."""
     if points.device.type == "cpu":
         return point_triangle_min_d2_reference(points, tris)
-    if points.device.type != "cuda":
-        raise ValueError(f"point_triangle_min_d2: unsupported device {points.device}")
-    for name, t, cols in (("points", points, 3), ("tris", tris, 9)):
-        if t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != cols:
-            raise TypeError(f"point_triangle_min_d2: {name} must be f32 (N, {cols}), got {t.dtype} {tuple(t.shape)}")
-        if t.device != points.device or not t.is_contiguous():
-            raise ValueError(f"point_triangle_min_d2: {name} must be contiguous on {points.device}")
-        if t.shape[0] >= 2**31 // 9:
-            raise ValueError(f"point_triangle_min_d2: too many {name}")
-    from oai_analysis_2_tpu_torch.ops.cuda_build import load_library
-
-    fn = load_library("point_triangle").point_triangle_min_d2
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    n_pts, n_tris = points.shape[0], tris.shape[0]
-    bits = torch.full((n_pts,), _INF_BITS, dtype=torch.int32, device=points.device)
-    point_blocks = max(1, -(-n_pts // 128))
-    n_splits = max(1, -(-_TARGET_BLOCKS // point_blocks))
-    with torch.cuda.device(points.device):
-        stream = torch.cuda.current_stream(points.device).cuda_stream
-        err = fn(points.data_ptr(), tris.data_ptr(), n_pts, n_tris, n_splits, bits.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"point_triangle kernel launch failed with CUDA error {err}")
+    out = point_triangle_launch(points, tris)
     point_triangle_min_d2.launches += 1
-    return bits.view(torch.float32)
+    return out
 
 
 point_triangle_min_d2.launches = 0

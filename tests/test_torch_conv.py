@@ -193,3 +193,86 @@ def test_cpu_conv_launches_no_kernel():
     cuda_conv.conv3d(torch.tensor(x).to(torch.bfloat16), torch.tensor(k).to(torch.bfloat16), torch.tensor(b))
     assert cuda_conv.conv3d.launches == 0
     assert all(getattr(cuda_conv.conv3d, f"launches_{r}") == 0 for r in cuda_conv.ROUTES)
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _recorded_stage_convs():
+    """(x shape, DHWIO kernel shape) of each 3x3x3 conv of the shipped
+    GradICON's finest stage, in call order, recorded from the port's stage
+    UNet run on meta tensors at the shipped grid (no arithmetic)."""
+    from oai_analysis_2_tpu_torch.models.gradicon import load_gradicon_checkpoint
+
+    params, meta = load_gradicon_checkpoint()
+    net = T.UNet3D(_stage_spec(meta["stage_width"]), torch.float32, device="meta")
+    calls = []
+
+    def record(x, kernel, bias=None, *, relu=False, out_dtype=None):
+        calls.append((tuple(x.shape), tuple(kernel.shape)))
+        return torch.empty(tuple(x.shape[:-1]) + (kernel.shape[-1],), device=x.device)
+
+    orig = T.conv3d
+    T.conv3d = record
+    try:
+        net(torch.empty((1,) + tuple(meta["grid_shape"]) + (2,), device="meta"))
+    finally:
+        T.conv3d = orig
+    return params[-1], calls
+
+
+STAGE2_NAMES = [n for n, _ in GRADICON_CONVS]
+
+
+@pytest.mark.parametrize("index", range(len(STAGE2_NAMES)), ids=STAGE2_NAMES)
+def test_chip_smoke_times_the_real_gradicon_convs(index):
+    """chip_smoke.py's f32 shapes are the shipped stage-2 convs at the grid
+    sizes the stage UNet gives them: Cin and Cout as in the weights file
+    (dec1a is 144 -> 48, upconv 96 + skip 48), x as recorded from a run."""
+    name, shape, cin, cout = _chip_smoke().gradicon_convs()[index]
+    stage_params, calls = _recorded_stage_convs()
+    x_shape, kshape = calls[index]
+    assert name == f"stage2.{STAGE2_NAMES[index]}"
+    assert tuple(np.shape(stage_params[STAGE2_NAMES[index]]["kernel"])) == kshape == (3, 3, 3, cin, cout)
+    assert x_shape == shape + (cin,)
+
+
+@pytest.mark.parametrize("cout,voxels,want", [
+    (24, 442368, (512, 24, 1)), (48, 442368, (256, 48, 1)), (96, 55296, (128, 96, 1)),
+    (48, 55296, (128, 48, 1)), (192, 6912, (64, 96, 2)), (96, 6912, (64, 96, 4)), (24, 55296, (256, 24, 2)),
+    (7, 442368, (512, 24, 1)), (72, 1000, (256, 24, 2)), (100, 442368, (512, 24, 1)),
+])
+def test_f32_tile_choice(cout, voxels, want):
+    """BN pads Cout least (24, 48, 96 and 192 not at all) and BM * BN =
+    12288; under 264 blocks (two per SM) BM halves, and then under 264
+    blocks K splits in 2 groups, under 132 in 4 (2 at BN = 24)."""
+    assert cuda_conv.f32_tile(cout, voxels) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float64])
+def test_f32_was_launcher_refuses_other_types(dtype):
+    x, k, _ = _inputs((1, 3, 4, 5, 16), 48)
+    with pytest.raises(ValueError, match="route"):
+        cuda_conv.launch(torch.tensor(x).to(dtype), torch.tensor(k).to(dtype), route="f32_was")
+
+
+def test_f32_was_launcher_refuses_cpu_tensors():
+    x, k, _ = _inputs((1, 3, 4, 5, 16), 48)
+    with pytest.raises(ValueError, match="device"):
+        cuda_conv.launch(torch.tensor(x), torch.tensor(k), route="f32_was")
+
+
+@pytest.mark.parametrize("route", ["sm90", "wmma"])
+def test_compute_only_build_is_the_f32_kernels(route):
+    """Only the f32 kernel has a compute-only measurement build."""
+    x, k, _ = _inputs((1, 3, 4, 5, 16), 64)
+    with pytest.raises(ValueError, match="compute-only"):
+        cuda_conv.launch(torch.tensor(x).to(torch.bfloat16), torch.tensor(k).to(torch.bfloat16), route=route,
+                         compute_only=True)

@@ -155,3 +155,101 @@ def test_distance_kernel_matches_plain(card, seed, n_tri, n_pts):
     assert cuda_kernels.point_triangle_min_d2.launches == before + 1
     want = torch.sqrt(cuda_kernels.point_triangle_min_d2_reference(p, t))
     torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-4)
+
+
+# every channel pair of the width-24 GradICON stage UNets, on small ragged
+# grids: a batch of 2, and a single z plane (both out-of-volume z taps)
+F32_PAIRS = [(2, 24), (24, 48), (48, 48), (144, 48), (48, 96), (288, 96), (96, 96), (96, 192)]
+F32_GRIDS = [(2, 3, 7, 9), (1, 1, 6, 13)]
+
+
+@pytest.mark.parametrize("cin,cout", F32_PAIRS)
+@pytest.mark.parametrize("grid", F32_GRIDS)
+@pytest.mark.parametrize("use_bias,relu", [(True, True), (False, False)])
+def test_f32_conv_matches_plain_at_gradicon_widths(card, cin, cout, grid, use_bias, relu):
+    assert cuda_conv.conv3d_route(cin, cout, torch.float32) == "f32"
+    rng = np.random.default_rng(cin * 1000 + cout)
+    x = torch.tensor(rng.normal(0, 1, grid + (cin,)).astype(np.float32), device=card)
+    k = torch.tensor((rng.normal(0, 1, (3, 3, 3, cin, cout)) / np.sqrt(27 * cin)).astype(np.float32), device=card)
+    b = torch.tensor(rng.normal(0, 0.5, (cout,)).astype(np.float32), device=card) if use_bias else None
+    before = cuda_conv.conv3d.launches_f32
+    got = cuda_conv.conv3d(x, k, b, relu=relu)
+    torch.cuda.synchronize()
+    assert cuda_conv.conv3d.launches_f32 == before + 1
+    want = cuda_conv.conv3d_reference(x, k, b, relu=relu)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    got_bf16 = cuda_conv.conv3d(x, k, b, relu=relu, out_dtype=torch.bfloat16)
+    torch.testing.assert_close(got_bf16.float(), got.to(torch.bfloat16).float(), atol=1e-2, rtol=1e-2)
+
+
+def test_f32_was_build_agrees_uncounted(card):
+    """The build that the f32 route replaced, reached only through
+    `launch(route="f32_was")`: it agrees with the route's kernel and moves
+    no launch count."""
+    rng = np.random.default_rng(17)
+    x = torch.tensor(rng.normal(0, 1, (2, 3, 7, 9, 48)).astype(np.float32), device=card)
+    k = torch.tensor(rng.normal(0, 0.05, (3, 3, 3, 48, 96)).astype(np.float32), device=card)
+    b = torch.tensor(rng.normal(0, 0.5, (96,)).astype(np.float32), device=card)
+    want = cuda_conv.conv3d(x, k, b, relu=True)
+    before = {r: getattr(cuda_conv.conv3d, f"launches_{r}") for r in cuda_conv.ROUTES}
+    total = cuda_conv.conv3d.launches
+    got = cuda_conv.launch(x, k, b, route="f32_was", relu=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    assert {r: getattr(cuda_conv.conv3d, f"launches_{r}") for r in cuda_conv.ROUTES} == before
+    assert cuda_conv.conv3d.launches == total
+
+
+def _check_distance(card, tris, points):
+    p = torch.tensor(points, device=card)
+    t = torch.tensor(tris, device=card)
+    before = cuda_kernels.point_triangle_min_d2.launches
+    got = cuda_kernels.point_triangle_distance(p, t)
+    torch.cuda.synchronize()
+    assert cuda_kernels.point_triangle_min_d2.launches == before + 1
+    want = torch.sqrt(cuda_kernels.point_triangle_min_d2_reference(p, t))
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("n_pts", [1, 33, 129, 1000])
+def test_distance_kernel_at_ragged_point_counts(card, n_pts):
+    """Point counts that leave a thread's 4 points, or a block's 512, part
+    empty."""
+    tris, points = _soup(n_pts, 700, max(n_pts, 3))
+    _check_distance(card, tris, points[:n_pts])
+
+
+def test_distance_kernel_at_knee_coordinates(card):
+    """A small-triangle surface 150 mm from the origin (knee-like
+    coordinates), points on its edges and corners and just off them, and
+    degenerate triangles (a point, a segment, collinear corners)."""
+    rng = np.random.default_rng(23)
+    n_tri = 2000
+    corner = rng.uniform(0, 40, (n_tri, 1, 3)) + 150.0
+    tris = (corner + rng.normal(0, 0.5, (n_tri, 3, 3))).astype(np.float32)
+    tris[1] = tris[1, 0]  # a point
+    tris[2, 1] = tris[2, 0]  # a segment
+    tris[3, 2] = 2 * tris[3, 1] - tris[3, 0]  # collinear corners
+    w = rng.uniform(0, 1, (n_tri, 1)).astype(np.float32)
+    on_edge = w * tris[:, 0] + (1 - w) * tris[:, 1]
+    points = np.concatenate([
+        tris[:300].reshape(-1, 3),  # corners
+        on_edge[:600],  # on edges
+        on_edge[600:900] + rng.normal(0, 1e-3, (300, 3)).astype(np.float32),  # just off them
+        (corner[:500, 0] + rng.normal(0, 2.0, (500, 3))).astype(np.float32),  # around the surface
+    ]).astype(np.float32)
+    _check_distance(card, tris.reshape(-1, 9), points)
+
+
+def test_distance_was_build_agrees_uncounted(card):
+    """The build that the distance kernel replaced, reached only through
+    `point_triangle_launch(build="was")`: it agrees with the kernel and
+    moves no launch count."""
+    tris, points = _soup(29, 1500, 900)
+    p, t = torch.tensor(points, device=card), torch.tensor(tris, device=card)
+    want = cuda_kernels.point_triangle_min_d2(p, t)
+    before = cuda_kernels.point_triangle_min_d2.launches
+    got = cuda_kernels.point_triangle_launch(p, t, build="was")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.sqrt(), want.sqrt(), atol=1e-3, rtol=1e-4)
+    assert cuda_kernels.point_triangle_min_d2.launches == before

@@ -83,3 +83,28 @@ def test_get_distance_both_directions():
 def test_distance_wrapper_refuses_other_devices():
     with pytest.raises(ValueError):
         cuda_kernels.point_triangle_min_d2(torch.zeros((4, 3), device="meta"), torch.zeros((2, 9), device="meta"))
+
+
+@pytest.mark.parametrize("build", ["fma", "was"])
+def test_launcher_refuses_cpu_tensors_and_other_types(build):
+    """`point_triangle_launch` has no plain version: CPU tensors raise
+    instead of taking it, and so does any type but f32."""
+    p, t = torch.zeros((4, 3)), torch.zeros((2, 9))
+    with pytest.raises(ValueError, match="device"):
+        cuda_kernels.point_triangle_launch(p, t, build=build)
+    with pytest.raises(TypeError, match="f32"):
+        cuda_kernels.point_triangle_launch(p.double(), t.double(), build=build)
+    with pytest.raises(TypeError, match="f32"):
+        cuda_kernels.point_triangle_launch(p, t.half(), build=build)
+
+
+def test_launcher_refuses_unknown_builds():
+    with pytest.raises(ValueError, match="build"):
+        cuda_kernels.point_triangle_launch(torch.zeros((4, 3)), torch.zeros((2, 9)), build="plain")
+
+
+def test_cpu_distance_launches_no_kernel():
+    verts, faces, points = _soup(5, n_tri=20, n_pts=10)
+    before = cuda_kernels.point_triangle_min_d2.launches
+    cuda_kernels.point_triangle_min_d2(torch.tensor(points), torch.tensor(verts[faces].reshape(-1, 9)))
+    assert cuda_kernels.point_triangle_min_d2.launches == before
