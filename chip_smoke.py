@@ -13,12 +13,15 @@ Phases, each fatal on failure (exit code 1, no result line):
    function, with CUDA events. The conv has three routes
    (`cuda_conv.conv3d_route`): the TMA + wgmma kernel `sm90` at the segment
    UNet's three full-resolution shapes and one shape per lower level, the
-   wmma build at enc0a (Cin = 1), the f32 kernel at each of the ten convs
-   of the finest GradICON stage (from the stage spec, at their grid
-   sizes). At each sm90 shape it also times the wmma build (which ran
-   those convs before the sm90 route) and the sm90 kernel's loads-only
-   build; at each f32 shape and at the distance shape, the build that the
-   kernel replaced (`was_ms`, uncounted launches);
+   mma.sync kernel `cin1` at enc0a (Cin = 1), the f32 kernel at each of the
+   ten convs of the finest GradICON stage (from the stage spec, at their
+   grid sizes). A bf16 conv is checked with f32 output and with the bf16
+   output the main path takes (each its own build of the kernel). At each
+   sm90 and cin1 shape it also times the wmma build (which ran those convs
+   before) and the sm90 kernel's loads-only or the cin1 kernel's
+   stores-only and general-path builds; at each f32 shape and at the
+   distance shape, the build that the kernel replaced (`was_ms`, uncounted
+   launches);
 3. small knee: the whole pipeline on a 48x96x96 knee on the card and on the
    CPU (plain versions), compared;
 4. full knee: `KneePipeline.run` on a 160x384x384 knee against the bench
@@ -26,17 +29,19 @@ Phases, each fatal on failure (exit code 1, no result line):
    `UNet` (threshold weights, bf16) and the shipped width-24 GradICON in
    network mode. The knee runs twice; the launch counts are zeroed just
    before the second run and read just after it, and that run is reported:
-   the sm90 route must have taken every bf16 conv launch but enc0a's.
-   Then the thickness stage runs once more, timed per substage, and the
-   knee once more under torch.profiler (the device's busy share and its
-   milliseconds by kernel), which must show the f32 conv and distance
-   time in their kernels and none in the builds those replaced.
+   the sm90 route must have taken 13 bf16 conv launches per cin1 (enc0a)
+   launch, and the wmma build none. Then the thickness stage runs once
+   more, timed per substage, and the knee once more under torch.profiler
+   (the device's busy share and its milliseconds by kernel), which must
+   show the enc0a, f32 conv and distance time in their kernels and none in
+   the builds those replaced.
 
 Before the last line it prints one JSON object `{"kernels": [...]}` (per
 kernel and conv route: launches on the reported run, max error against the
 plain version, kernel / plain / library milliseconds and the bound; sm90,
-f32 and distance rows add the replaced build's milliseconds, sm90 rows the
-loads-only build's), then the card line.
+cin1, f32 and distance rows add the replaced build's milliseconds, sm90
+rows the loads-only build's, the cin1 row the stores-only build's), then
+the card line.
 The last line is `{"ok": true, "device": {...}}`. Without a CUDA card it
 exits with code 1 and prints no result. It imports nothing of JAX.
 """
@@ -70,7 +75,7 @@ DIST_OPS_PER_PAIR = 85
 SLAB = (1, 48, 416, 416)  # one auto z-slab of the 160x384x384 knee
 # (name, x shape without channels, Cin, Cout) of segment-UNet convs on one
 # slab: the three full-resolution ones on the sm90 route, one per lower
-# level, and enc0a (Cin = 1) on the wmma route
+# level, and enc0a (Cin = 1) on the cin1 route
 SEG_CONVS = [
     ("enc0b", SLAB, 32, 64), ("dec2a", SLAB, 192, 64), ("dec2b", SLAB, 64, 64),
     ("enc1b", (1, 24, 208, 208), 128, 128), ("dec0a", (1, 12, 104, 104), 768, 256),
@@ -80,6 +85,7 @@ REG_GRID = (48, 96, 96)  # the registration grid; the finest stage (scale 1) run
 REG_WIDTH = 24  # the shipped GradICON's stage width (oai_analysis_2_tpu/weights/gradicon.npz)
 DIST_SHAPE = (32_500, 65_000)  # points x triangles, production mesh sizes
 CONV_SOURCES = {"sm90": "oai_analysis_2_tpu_torch/csrc/conv3d_sm90.cu",
+                "cin1": "oai_analysis_2_tpu_torch/csrc/conv3d_cin1.cu",
                 "wmma": "oai_analysis_2_tpu_torch/csrc/conv3d.cu",
                 "f32": "oai_analysis_2_tpu_torch/csrc/conv3d_f32.cu"}
 
@@ -179,10 +185,20 @@ def conv_case(torch, F, cuda_conv, name, shape, cin, cout, dtype, tol, reps, clo
     x = torch.randn(shape + (cin,), device="cuda", generator=gen).to(dtype)
     k = (torch.randn((3, 3, 3, cin, cout), device="cuda", generator=gen) / (27 * cin) ** 0.5).to(dtype)
     b = torch.randn((cout,), device="cuda", generator=gen) * 0.1
-    got = cuda_conv.conv3d(x, k, b, relu=True, out_dtype=torch.float32)
     want = cuda_conv.conv3d_reference(x, k, b, relu=True, out_dtype=torch.float32)
-    err = check_close(f"conv3d {name}", got, want, tol, tol)
-    del got, want
+    # f32 output: the kernel's f32 accumulator and epilogue, held at 1e-4
+    # where K is short (cin1: 27 products) or the operands are f32
+    f32_tol = 1e-4 if route in ("cin1", "f32") else tol
+    got = cuda_conv.conv3d(x, k, b, relu=True, out_dtype=torch.float32)
+    err = err_f32 = check_close(f"conv3d {name} (f32 out)", got, want, f32_tol, f32_tol)
+    del got
+    if dtype != torch.float32:
+        # the output type the main path takes, another build of the kernel:
+        # one cast of the f32 result, so within a bf16 rounding of the plain one
+        got = cuda_conv.conv3d(x, k, b, relu=True, out_dtype=dtype)
+        err = check_close(f"conv3d {name}", got, want, tol, tol)
+        del got
+    del want
     ms = time_ms(torch, lambda: cuda_conv.conv3d(x, k, b, relu=True, out_dtype=dtype), reps)
     plain_ms = time_ms(torch, lambda: cuda_conv.conv3d_reference(x, k, b, relu=True, out_dtype=dtype), 1)
     # yardstick: one cuDNN call on the channels-last view of the same data
@@ -220,6 +236,20 @@ def conv_case(torch, F, cuda_conv, name, shape, cin, cout, dtype, tol, reps, clo
             "loads_ms": time_ms(torch, lambda: cuda_conv.launch(x, k, b, route="sm90", relu=True,
                                                                  out_dtype=dtype, loads_only=True), reps),
         }
+    if route == "cin1":
+        # uncounted launches at enc0a's shape: the wmma build of
+        # csrc/conv3d.cu, which ran enc0a before the cin1 route, the cin1
+        # kernel's store path alone (bias + ReLU of zero staged and copied
+        # out; no loads, no products), and the cin1 kernel on its general
+        # paths (cp.async landing, bulk row stores) in place of TMA's
+        extra = {
+            "was_ms": time_ms(torch, lambda: cuda_conv.launch(x, k, b, route="wmma", relu=True,
+                                                               out_dtype=dtype), reps),
+            "stores_ms": time_ms(torch, lambda: cuda_conv.launch(x, k, b, route="cin1", relu=True,
+                                                                  out_dtype=dtype, stores_only=True), reps),
+            "general_ms": time_ms(torch, lambda: cuda_conv.launch(x, k, b, route="cin1", relu=True,
+                                                                   out_dtype=dtype, general=True), reps),
+        }
     del x, k, b, x_cl, w_cl
     torch.cuda.empty_cache()
     return {
@@ -231,6 +261,7 @@ def conv_case(torch, F, cuda_conv, name, shape, cin, cout, dtype, tol, reps, clo
         "launches": None,
         "max_abs_err": err,
         "tol": {"atol": tol, "rtol": tol},
+        **({} if dtype == torch.float32 else {"max_abs_err_f32_out": err_f32, "tol_f32_out": f32_tol}),
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": max(bound_ops, bound_bytes),
@@ -387,9 +418,10 @@ def profile_knee(torch, pipe, knee) -> dict:
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
                    if e.device_type == DeviceType.CUDA)
     by_name, busy_us, cur = {}, 0.0, None
-    # the "was" families are the builds that the f32 and distance kernels
-    # replaced: the main path must not reach them
-    families = {"conv3d_sm90": "conv3d_sm90_kernel", "conv3d_wmma": "conv3d_bf16_kernel",
+    # the "was" families are the builds that the enc0a (cin1), f32 and
+    # distance kernels replaced: the main path must not reach them
+    families = {"conv3d_sm90": "conv3d_sm90_kernel", "conv3d_cin1": "conv3d_cin1_kernel",
+                "conv3d_cin1_was": "conv3d_bf16_kernel",
                 "conv3d_f32": "conv3d_f32_ring_kernel", "point_triangle": "point_triangle_min_d2_fma_kernel",
                 "conv3d_f32_was": "conv3d_f32_kernel", "point_triangle_was": "point_triangle_min_d2_kernel"}
     for start, end, name in spans:
@@ -438,8 +470,10 @@ def main() -> int:
 
     # ---- 2. kernels against their plain versions -----------------------------
     t0 = time.perf_counter()
+    # 5 reps at the slab's wide convs; enc0a (Cin = 1) takes 20, since its
+    # 0.2 ms would carry the first launch's host time at 5
     kernels = [conv_case(torch, F, cuda_conv, name, shape, cin, cout, torch.bfloat16, 2e-2,
-                         reps=5 if shape == SLAB else 20)
+                         reps=5 if shape == SLAB and cin > 1 else 20)
                for name, shape, cin, cout in SEG_CONVS]
     kernels += [conv_case(torch, F, cuda_conv, name, shape, cin, cout, torch.float32, 1e-4, reps=20,
                           clock=name == "stage2.dec1a")
@@ -448,6 +482,8 @@ def main() -> int:
     for k in kernels:
         more = f", was {k['was_ms']:.3f} ms" if "was_ms" in k else ""
         more += f", loads alone {k['loads_ms']:.3f} ms" if "loads_ms" in k else ""
+        more += f", stores alone {k['stores_ms']:.3f} ms" if "stores_ms" in k else ""
+        more += f", general paths {k['general_ms']:.3f} ms" if "general_ms" in k else ""
         more += f", multiplies alone {k['compute_ms']:.3f} ms" if "compute_ms" in k else ""
         more += f", SM clock {k['sm_clock_mhz']} MHz at {k['power_w']} W" if "sm_clock_mhz" in k else ""
         log(f"phase kernels: {k['name']} [{k['shape']}] max_abs_err {k['max_abs_err']:.3g} "
@@ -480,6 +516,7 @@ def main() -> int:
     wall = time.perf_counter() - t0
     launches = {
         "conv3d_sm90": cuda_conv.conv3d.launches_sm90,
+        "conv3d_cin1": cuda_conv.conv3d.launches_cin1,
         "conv3d_wmma": cuda_conv.conv3d.launches_wmma,
         "conv3d_f32": cuda_conv.conv3d.launches_f32,
         "point_triangle": cuda_kernels.point_triangle_min_d2.launches,
@@ -500,12 +537,13 @@ def main() -> int:
     if not quality or not all(np.isfinite(v) for v in quality.values()):
         raise AssertionError(f"registration quality missing or non-finite: {quality}")
     for name, n in launches.items():
-        if n <= 0:
+        if name != "conv3d_wmma" and n <= 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
-    # each UNet forward runs 14 bf16 convs, enc0a's alone on the wmma route
-    if launches["conv3d_sm90"] != 13 * launches["conv3d_wmma"]:
-        raise AssertionError(f"sm90 route took {launches['conv3d_sm90']} bf16 conv launches, "
-                             f"want 13 per enc0a launch ({launches['conv3d_wmma']})")
+    # each UNet forward runs 14 bf16 convs, enc0a's alone on the cin1 route;
+    # no conv of the production UNet reaches the wmma build
+    if launches["conv3d_sm90"] != 13 * launches["conv3d_cin1"] or launches["conv3d_wmma"] != 0:
+        raise AssertionError(f"sm90 route took {launches['conv3d_sm90']} bf16 conv launches, want 13 per "
+                             f"enc0a launch ({launches['conv3d_cin1']}); wmma took {launches['conv3d_wmma']}, want 0")
     for k in kernels:
         k["launches"] = launches[k["name"].split(":")[0]]
 
@@ -529,7 +567,7 @@ def main() -> int:
     profiled = profile_knee(torch, pipe, knee)
     log(f"phase full knee: profiled run {json.dumps(profiled)}")
     device_ms = profiled["kernel_device_ms"]
-    for fam in ("conv3d_f32", "point_triangle"):
+    for fam in ("conv3d_cin1", "conv3d_f32", "point_triangle"):
         if not device_ms[fam] > 0.0 or device_ms[f"{fam}_was"] != 0.0:
             raise AssertionError(f"profiled knee: {fam} ran {device_ms[fam]} ms in its kernel and "
                                  f"{device_ms[fam + '_was']} ms in the build it replaced")

@@ -32,6 +32,7 @@ _COMMON_FLAGS = [
 # rounded op by op like the plain version)
 EXTRA_FLAGS: Dict[str, List[str]] = {
     "conv3d": [],
+    "conv3d_cin1": [],
     "conv3d_f32": [],
     "conv3d_sm90": [],
     "point_triangle": [],

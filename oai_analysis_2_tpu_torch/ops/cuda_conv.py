@@ -1,6 +1,6 @@
 """3x3x3 SAME convolution: the wrapper of the Hopper kernels
-`csrc/conv3d_sm90.cu`, `csrc/conv3d_f32.cu` and `csrc/conv3d.cu`, and their
-plain PyTorch version.
+`csrc/conv3d_sm90.cu`, `csrc/conv3d_cin1.cu`, `csrc/conv3d_f32.cu` and
+`csrc/conv3d.cu`, and their plain PyTorch version.
 
 Replaces the TPU kernel `_kernel`/`conv3d_zstack`
 (`oai_analysis_2_tpu/ops/pallas_conv.py:100-243`) and keeps its contract:
@@ -14,8 +14,13 @@ Routes (`conv3d_route`, by channel counts and type alone):
   * "sm90": bf16 with Cin % 16 == 0 and Cout % 64 == 0, the TMA + wgmma
     kernel of `csrc/conv3d_sm90.cu` (every segment-UNet conv but the first).
     It takes the weights as (27, Cout, Cin), re-laid out here per call;
-  * "wmma": any other bf16 shape (Cin = 1, ragged channels), the wmma build
-    of `csrc/conv3d.cu`;
+  * "cin1": bf16 with Cin == 1, Cout % 8 == 0 and Cout <= 64 (every UNet's
+    enc0a), the mma.sync kernel of `csrc/conv3d_cin1.cu` (the input box
+    landed by TMA, products from ldmatrix, the output staged in shared
+    memory and stored by TMA). It takes the weights as (32, Cout), re-laid
+    out here per call;
+  * "wmma": any other bf16 shape (ragged channels), the wmma build of
+    `csrc/conv3d.cu`;
   * "f32": f32 operands (the GradICON stages), the CUDA-core kernel of
     `csrc/conv3d_f32.cu` (cp.async ring, 8 x 8 register tiles, the tile
     chosen by `f32_tile`).
@@ -23,11 +28,12 @@ Routes (`conv3d_route`, by channel counts and type alone):
 `conv3d` takes the plain version ONLY for tensors on the CPU. A CUDA tensor
 launches its route's kernel or raises: no route falls back to another.
 `conv3d.launches` counts every launch, `conv3d.launches_sm90`,
-`conv3d.launches_wmma` and `conv3d.launches_f32` each route's share.
-`launch` is the uncounted launcher under `conv3d`, open to measurements
-that time a route at another's shape, the sm90 kernel's loads alone, or
-the f32 build that the "f32" route replaced (route "f32_was", the
-CUDA-core build of `csrc/conv3d.cu`).
+`conv3d.launches_cin1`, `conv3d.launches_wmma` and `conv3d.launches_f32`
+each route's share. `launch` is the uncounted launcher under `conv3d`, open
+to measurements that time a route at another's shape (the wmma build at
+enc0a's), the sm90 kernel's loads alone, the cin1 kernel's stores alone or
+its general load and store paths, or the f32 build that the "f32" route replaced (route "f32_was", the CUDA-core
+build of `csrc/conv3d.cu`).
 """
 
 from __future__ import annotations
@@ -39,7 +45,7 @@ import torch
 import torch.nn.functional as F
 
 _DTYPES = (torch.bfloat16, torch.float32)
-ROUTES = ("sm90", "wmma", "f32")
+ROUTES = ("sm90", "cin1", "wmma", "f32")
 # what `launch` takes: the routes, and the f32 build that the "f32" route
 # replaced (the CUDA-core kernel of csrc/conv3d.cu), which `conv3d` never takes
 BUILDS = ROUTES + ("f32_was",)
@@ -54,6 +60,8 @@ def conv3d_route(cin: int, cout: int, dtype: torch.dtype) -> str:
         return "f32"
     if cin % 16 == 0 and cout % 64 == 0:
         return "sm90"
+    if cin == 1 and cout % 8 == 0 and cout <= 64:
+        return "cin1"
     return "wmma"
 
 
@@ -83,6 +91,14 @@ def sm90_weights(kernel: torch.Tensor) -> torch.Tensor:
     K-major rows that the sm90 kernel's wgmma reads as its B operand."""
     cin, cout = kernel.shape[3], kernel.shape[4]
     return kernel.reshape(27, cin, cout).transpose(1, 2).contiguous()
+
+
+def cin1_weights(kernel: torch.Tensor) -> torch.Tensor:
+    """DHWIO (3, 3, 3, 1, Cout) -> (32, Cout): the 27 taps in DHWIO order
+    (tap = (kz * 3 + ky) * 3 + kx), then 5 zero rows, the K = 32 of the cin1
+    kernel's two m16n8k16 steps."""
+    cout = kernel.shape[4]
+    return F.pad(kernel.reshape(27, cout), (0, 0, 0, 5)).contiguous()
 
 
 def conv3d_reference(
@@ -165,6 +181,8 @@ def launch(
     out_dtype: Optional[torch.dtype] = None,
     loads_only: bool = False,
     compute_only: bool = False,
+    stores_only: bool = False,
+    general: bool = False,
 ) -> torch.Tensor:
     """Launch `route`'s kernel on CUDA tensors, uncounted: `conv3d` calls it
     with the route of the shape and counts the launch. Called directly, it
@@ -172,7 +190,11 @@ def launch(
     "f32" route replaced (route="f32_was"), or (`loads_only`, sm90) the sm90
     kernel's load pipeline alone, whose output is left unwritten, or
     (`compute_only`, f32) the f32 kernel's multiplies alone, without its
-    copies, whose output is garbage."""
+    copies, whose output is garbage, or (`stores_only`, cin1) the cin1
+    kernel's stores alone, without its loads and products, whose output is
+    relu?(bias), not the conv, or (`general`, cin1) the cin1 kernel with
+    its cp.async landing and `cp.async.bulk` row stores at any shape, in
+    place of the TMA landing and TMA store that enc0a's shape takes."""
     out_dtype = x.dtype if out_dtype is None else out_dtype
     if route not in BUILDS or route.startswith("f32") != (x.dtype == torch.float32):
         raise ValueError(f"conv3d: route {route!r} does not take {x.dtype} operands")
@@ -180,6 +202,10 @@ def launch(
         raise ValueError("conv3d: only the sm90 route has a loads-only build")
     if compute_only and route != "f32":
         raise ValueError("conv3d: only the f32 route has a compute-only build")
+    if stores_only and route != "cin1":
+        raise ValueError("conv3d: only the cin1 route has a stores-only build")
+    if general and route != "cin1":
+        raise ValueError("conv3d: only the cin1 route has a general build")
     if x.device.type != "cuda":
         raise ValueError(f"conv3d: unsupported device {x.device}")
     _check(x, kernel, bias, out_dtype)
@@ -200,6 +226,17 @@ def launch(
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         args = [x.data_ptr(), wt.data_ptr(), bias_ptr, out.data_ptr(), b, d, h, w, cin, cout,
                 int(relu), int(out_dtype == torch.bfloat16), int(loads_only)]
+    elif route == "cin1":
+        if cin != 1 or cout % 8 or cout > 64:
+            raise ValueError(f"conv3d: the cin1 route needs Cin == 1, Cout % 8 == 0 and Cout <= 64, got {cin}, {cout}")
+        # the 16-byte copies need a 16-byte-aligned x and out; out is a fresh allocation
+        if x.data_ptr() % 16:
+            raise ValueError("conv3d: the cin1 route needs 16-byte-aligned x (check its storage offset)")
+        wt = cin1_weights(kernel)
+        fn = load_library("conv3d_cin1").conv3d_cin1
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        args = [x.data_ptr(), wt.data_ptr(), bias_ptr, out.data_ptr(), b, d, h, w, cout,
+                int(relu), int(out_dtype == torch.bfloat16), int(stores_only), int(general)]
     else:
         ptrs = [x.data_ptr(), kernel.data_ptr(), out.data_ptr()] + ([] if bias is None else [bias_ptr])
         vec_ok = int(all(p % 16 == 0 for p in ptrs))

@@ -48,7 +48,8 @@ def test_plain_conv_f32_matches_jax(shape, cout, use_bias):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.parametrize("shape,cout", CASES[:2])
+# and enc0a's contract: Cin = 1 -> Cout = 32 in bf16 (the cin1 route)
+@pytest.mark.parametrize("shape,cout", CASES[:2] + [((1, 4, 6, 8, 1), 32)])
 @pytest.mark.parametrize("relu", [False, True])
 def test_plain_conv_bf16_matches_pallas_interpret(shape, cout, relu):
     """bf16 operands, f32 accumulation, bias + ReLU + one cast: the Pallas
@@ -139,10 +140,10 @@ GRADICON_CONVS = _conv_shapes(_stage_spec(24))
 @pytest.mark.parametrize("name,kshape", SEGMENT_CONVS, ids=[n for n, _ in SEGMENT_CONVS])
 def test_segment_unet_conv_route(name, kshape):
     """bf16 with Cin % 16 == 0 and Cout % 64 == 0 takes the TMA + wgmma
-    kernel: every production-UNet conv but enc0a (Cin = 1), which stays on
-    the wmma build."""
+    kernel: every production-UNet conv but enc0a (Cin = 1), which takes the
+    cin1 kernel."""
     cin, cout = kshape[3], kshape[4]
-    want = "wmma" if name == "enc0a" else "sm90"
+    want = "cin1" if name == "enc0a" else "sm90"
     assert cuda_conv.conv3d_route(cin, cout, torch.bfloat16) == want
 
 
@@ -154,8 +155,10 @@ def test_gradicon_conv_route(name, kshape):
     assert cuda_conv.conv3d_route(cin, cout, torch.float32) == "f32"
 
 
-@pytest.mark.parametrize("cin,cout,want", [(1, 32, "wmma"), (8, 64, "wmma"), (16, 48, "wmma"), (24, 64, "wmma"),
-                                           (16, 64, "sm90"), (96, 192, "sm90")])
+@pytest.mark.parametrize("cin,cout,want", [(1, 32, "cin1"), (8, 64, "wmma"), (16, 48, "wmma"), (24, 64, "wmma"),
+                                           (16, 64, "sm90"), (96, 192, "sm90"), (1, 8, "cin1"), (1, 16, "cin1"),
+                                           (1, 64, "cin1"), (1, 24, "cin1"), (1, 12, "wmma"), (1, 72, "wmma"),
+                                           (2, 32, "wmma")])
 def test_conv_route_shape_rule(cin, cout, want):
     assert cuda_conv.conv3d_route(cin, cout, torch.bfloat16) == want
 
@@ -185,6 +188,41 @@ def test_sm90_weight_layout():
     assert tuple(wt.shape) == (27, 4, 5) and wt.is_contiguous()
     for kz, ky, kx, ci, co in [(0, 0, 0, 0, 0), (2, 1, 0, 4, 3), (1, 2, 2, 3, 1), (2, 2, 2, 4, 3)]:
         assert wt[(kz * 3 + ky) * 3 + kx, co, ci] == k[kz, ky, kx, ci, co]
+
+
+def test_cin1_weight_layout():
+    """(32, Cout): tap (kz * 3 + ky) * 3 + kx in DHWIO order, rows 27-31
+    zero."""
+    k = torch.arange(1, 3 * 3 * 3 * 1 * 8 + 1, dtype=torch.float32).reshape(3, 3, 3, 1, 8)
+    wt = cuda_conv.cin1_weights(k)
+    assert tuple(wt.shape) == (32, 8) and wt.is_contiguous() and wt.dtype == k.dtype
+    for kz, ky, kx, co in [(0, 0, 0, 0), (2, 1, 0, 7), (1, 2, 2, 3), (2, 2, 2, 5)]:
+        assert wt[(kz * 3 + ky) * 3 + kx, co] == k[kz, ky, kx, 0, co]
+    assert bool((wt[27:] == 0).all()) and bool((wt[:27] != 0).all())
+
+
+@pytest.mark.parametrize("route,dtype", [("sm90", torch.bfloat16), ("wmma", torch.bfloat16),
+                                         ("f32", torch.float32)])
+def test_stores_only_build_is_the_cin1_kernels(route, dtype):
+    """Only the cin1 kernel has a stores-only measurement build."""
+    x, k, _ = _inputs((1, 3, 4, 5, 1), 32)
+    with pytest.raises(ValueError, match="stores-only"):
+        cuda_conv.launch(torch.tensor(x).to(dtype), torch.tensor(k).to(dtype), route=route, stores_only=True)
+
+
+@pytest.mark.parametrize("route,dtype", [("sm90", torch.bfloat16), ("wmma", torch.bfloat16),
+                                         ("f32", torch.float32)])
+def test_general_build_is_the_cin1_kernels(route, dtype):
+    """Only the cin1 kernel has a general-path measurement build."""
+    x, k, _ = _inputs((1, 3, 4, 5, 1), 32)
+    with pytest.raises(ValueError, match="general"):
+        cuda_conv.launch(torch.tensor(x).to(dtype), torch.tensor(k).to(dtype), route=route, general=True)
+
+
+def test_cin1_launcher_refuses_f32_operands():
+    x, k, _ = _inputs((1, 3, 4, 5, 1), 32)
+    with pytest.raises(ValueError, match="route"):
+        cuda_conv.launch(torch.tensor(x), torch.tensor(k), route="cin1")
 
 
 def test_cpu_conv_launches_no_kernel():
@@ -228,6 +266,30 @@ def _recorded_stage_convs():
     return params[-1], calls
 
 
+def test_chip_smoke_times_enc0a_on_the_cin1_route():
+    """chip_smoke.py's enc0a row is the production UNet's first conv at the
+    slab shape, and the source it names is the cin1 kernel's."""
+    mod = _chip_smoke()
+    (name, shape, cin, cout), = [c for c in mod.SEG_CONVS if c[0] == "enc0a"]
+    kshape = dict(SEGMENT_CONVS)["enc0a"]
+    assert (cin, cout) == (kshape[3], kshape[4]) and shape == mod.SLAB
+    route = cuda_conv.conv3d_route(cin, cout, torch.bfloat16)
+    assert route == "cin1" and mod.CONV_SOURCES[route].endswith("csrc/conv3d_cin1.cu")
+
+
+def test_every_conv_route_source_is_built():
+    """Each route's source in chip_smoke.py exists and is one of the
+    libraries that `cuda_build.build_all` compiles."""
+    from pathlib import Path
+
+    from oai_analysis_2_tpu_torch.ops import cuda_build
+
+    root = Path(__file__).resolve().parents[1]
+    for route in cuda_conv.ROUTES:
+        src = root / _chip_smoke().CONV_SOURCES[route]
+        assert src.is_file() and src.stem in cuda_build.EXTRA_FLAGS
+
+
 STAGE2_NAMES = [n for n, _ in GRADICON_CONVS]
 
 
@@ -269,7 +331,7 @@ def test_f32_was_launcher_refuses_cpu_tensors():
         cuda_conv.launch(torch.tensor(x), torch.tensor(k), route="f32_was")
 
 
-@pytest.mark.parametrize("route", ["sm90", "wmma"])
+@pytest.mark.parametrize("route", ["sm90", "wmma", "cin1"])
 def test_compute_only_build_is_the_f32_kernels(route):
     """Only the f32 kernel has a compute-only measurement build."""
     x, k, _ = _inputs((1, 3, 4, 5, 16), 64)

@@ -124,6 +124,106 @@ def test_sm90_conv_refuses_misaligned_input(card):
     assert {r: getattr(cuda_conv.conv3d, f"launches_{r}") for r in cuda_conv.ROUTES} == before
 
 
+# x shapes (B, D, H, W) for the cin1 route (bf16, Cin = 1). W = 41 and 130
+# (rows not a multiple of 16 bytes) take the cp.async box and W = 64 and 600
+# the TMA box; ragged sizes, batches of 2, rows cut into x chunks that do
+# not divide W (W = 130 at Cout 64, W = 600 at every Cout); no shape is a
+# multiple of its tile. Cout 8, 16, 32 and 64 store bf16 by TMA, the odd
+# and other widths (24, 40, 48, 56) by bulk rows; every Cout is its own
+# instantiation of the kernel
+CIN1_COUTS = [8, 16, 24, 32, 40, 48, 56, 64]
+CIN1_SHAPES = [(1, 5, 37, 41), (2, 7, 9, 130), (1, 3, 5, 600), (2, 3, 11, 64)]
+
+
+def _cin1_inputs(card, shape, cout, use_bias, seed=31):
+    rng = np.random.default_rng(seed + cout)
+    x = torch.tensor(rng.normal(0, 1, shape + (1,)).astype(np.float32), device=card).to(torch.bfloat16)
+    k = torch.tensor((rng.normal(0, 1, (3, 3, 3, 1, cout)) / np.sqrt(27)).astype(np.float32),
+                     device=card).to(torch.bfloat16)
+    b = torch.tensor(rng.normal(0, 0.5, (cout,)).astype(np.float32), device=card) if use_bias else None
+    return x, k, b
+
+
+@pytest.mark.parametrize("cout", CIN1_COUTS)
+@pytest.mark.parametrize("shape", CIN1_SHAPES)
+@pytest.mark.parametrize("use_bias,relu", [(True, True), (False, False)])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_cin1_conv_matches_plain(card, cout, shape, use_bias, relu, out_dtype):
+    assert cuda_conv.conv3d_route(1, cout, torch.bfloat16) == "cin1"
+    x, k, b = _cin1_inputs(card, shape, cout, use_bias)
+    before, before_cin1 = cuda_conv.conv3d.launches, cuda_conv.conv3d.launches_cin1
+    got = cuda_conv.conv3d(x, k, b, relu=relu, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert cuda_conv.conv3d.launches == before + 1
+    assert cuda_conv.conv3d.launches_cin1 == before_cin1 + 1
+    assert got.dtype == out_dtype
+    want = cuda_conv.conv3d_reference(x, k, b, relu=relu, out_dtype=torch.float32)
+    torch.testing.assert_close(got.float(), want, atol=2e-2, rtol=2e-2)
+    if out_dtype == torch.bfloat16:
+        # the bf16 output is the single rounding of the kernel's f32 result
+        got_f32 = cuda_conv.conv3d(x, k, b, relu=relu, out_dtype=torch.float32)
+        torch.testing.assert_close(got.float(), got_f32.to(torch.bfloat16).float(), atol=0, rtol=0)
+
+
+def test_cin1_uncounted_launches(card):
+    """The measurements' launches at a cin1 shape: the wmma build agrees
+    with the cin1 route, the stores-only build writes relu(bias) everywhere,
+    and neither moves a launch count."""
+    x, k, b = _cin1_inputs(card, (1, 5, 37, 41), 32, True)
+    want = cuda_conv.conv3d(x, k, b, relu=True, out_dtype=torch.float32)
+    before = {r: getattr(cuda_conv.conv3d, f"launches_{r}") for r in cuda_conv.ROUTES}
+    total = cuda_conv.conv3d.launches
+    got = cuda_conv.launch(x, k, b, route="wmma", relu=True, out_dtype=torch.float32)
+    stores = cuda_conv.launch(x, k, b, route="cin1", relu=True, out_dtype=torch.bfloat16, stores_only=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(stores.float(), torch.relu(b).to(torch.bfloat16).float().expand_as(stores),
+                               atol=0, rtol=0)
+    assert {r: getattr(cuda_conv.conv3d, f"launches_{r}") for r in cuda_conv.ROUTES} == before
+    assert cuda_conv.conv3d.launches == total
+
+
+@pytest.mark.parametrize("cout", [8, 32, 64])
+@pytest.mark.parametrize("shape", [(2, 3, 11, 64), (1, 3, 5, 600)])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_cin1_general_build_agrees(card, cout, shape, out_dtype):
+    """At shapes that take the TMA landing (and, for bf16 output, the TMA
+    store), the general build (cp.async landing, bulk row stores) gives the
+    same bits, uncounted."""
+    x, k, b = _cin1_inputs(card, shape, cout, True)
+    want = cuda_conv.conv3d(x, k, b, relu=True, out_dtype=out_dtype)
+    before = {r: getattr(cuda_conv.conv3d, f"launches_{r}") for r in cuda_conv.ROUTES}
+    got = cuda_conv.launch(x, k, b, route="cin1", relu=True, out_dtype=out_dtype, general=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    assert {r: getattr(cuda_conv.conv3d, f"launches_{r}") for r in cuda_conv.ROUTES} == before
+
+
+def test_cin1_conv_refuses_misaligned_input(card):
+    """A storage offset of one bf16 element breaks the 16-byte alignment of
+    the box's copies: the wrapper raises, it does not fall back to another
+    kernel."""
+    shape = (1, 3, 5, 64, 1)
+    base = torch.zeros(int(np.prod(shape)) + 1, device=card, dtype=torch.bfloat16)
+    x = base[1:].view(shape)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    k = torch.zeros((3, 3, 3, 1, 32), device=card, dtype=torch.bfloat16)
+    before = {r: getattr(cuda_conv.conv3d, f"launches_{r}") for r in cuda_conv.ROUTES}
+    with pytest.raises(ValueError, match="aligned"):
+        cuda_conv.conv3d(x, k)
+    assert {r: getattr(cuda_conv.conv3d, f"launches_{r}") for r in cuda_conv.ROUTES} == before
+
+
+@pytest.mark.parametrize("cout,dtype", [(12, torch.bfloat16), (72, torch.bfloat16), (32, torch.float32)])
+def test_cin1_launcher_refuses_other_shapes(card, cout, dtype):
+    """Cout = 12 (not a multiple of 8), Cout = 72 (above 64) and f32
+    operands raise; nothing falls back to the wmma build."""
+    x = torch.zeros((1, 3, 5, 9, 1), device=card, dtype=dtype)
+    k = torch.zeros((3, 3, 3, 1, cout), device=card, dtype=dtype)
+    with pytest.raises(ValueError, match="cin1|route"):
+        cuda_conv.launch(x, k, route="cin1")
+
+
 def test_conv_kernel_refuses_bad_input(card):
     x = torch.zeros((1, 4, 4, 4, 3), device=card)
     with pytest.raises(TypeError):
