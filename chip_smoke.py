@@ -36,6 +36,26 @@ Phases, each fatal on failure (exit code 1, no result line):
    show the enc0a, f32 conv and distance time in their kernels and none in
    the builds those replaced.
 
+5. instance small: `register_pair_instance` (scales 2 and 1, 20 Adam steps
+   each, lr 0.3) on the small knee and its atlas pooled to 24x48x48, on the
+   card and on the CPU, in both GradICON gradient modes: the final
+   objective, the inverse-consistency error, the fold fractions and the
+   maps are compared within the tolerances stated at `INSTANCE_SMALL_TOL`;
+6. accurate knee: `KneePipeline.run` with atlas thickness maps on the full
+   knee in two configurations, (a) the CLI default, network + 20
+   fine-tuning steps, and (b) instance optimization (80, 60, 40 steps at
+   scales 4, 2, 1 on the 48x96x96 grid). The atlas mapper is built first
+   (it segments the atlas once), its launches counted apart; each knee
+   then runs twice and the second run is reported: stage seconds with
+   register and atlas_map, peak memory, launches (f32 conv 60 in (a), 0 in
+   (b)), registration quality, raster coverage and mean mapped thickness.
+   Non-finite or empty maps, zero coverage, an FC median outside 0.2-10 mm
+   or an f32 conv launch in (b) are fatal;
+7. instance steps: milliseconds per Adam step at each of the three scales
+   (each gradient mode at scale 1), and one step at scale 1 (48x96x96)
+   under torch.profiler: device milliseconds by kernel name, device events
+   per step and the device's busy share.
+
 Before the last line it prints one JSON object `{"kernels": [...]}` (per
 kernel and conv route: launches on the reported run, max error against the
 plain version, kernel / plain / library milliseconds and the bound; sm90,
@@ -156,6 +176,29 @@ def check_close(name, got, want, atol, rtol) -> float:
         raise AssertionError(f"{name}: kernel disagrees with its plain version (max abs err {err}, "
                              f"{int(bad.sum())} elements beyond atol {atol} rtol {rtol})")
     return err
+
+
+def reset_launches(cuda_conv, cuda_kernels):
+    cuda_conv.reset_launches()
+    cuda_kernels.point_triangle_min_d2.launches = 0
+
+
+def read_launches(cuda_conv, cuda_kernels) -> dict:
+    return {
+        "conv3d_sm90": cuda_conv.conv3d.launches_sm90,
+        "conv3d_cin1": cuda_conv.conv3d.launches_cin1,
+        "conv3d_wmma": cuda_conv.conv3d.launches_wmma,
+        "conv3d_f32": cuda_conv.conv3d.launches_f32,
+        "point_triangle": cuda_kernels.point_triangle_min_d2.launches,
+    }
+
+
+def check_bf16_routes(launches, what):
+    """Each UNet forward runs 14 bf16 convs, enc0a's alone on the cin1
+    route; no conv of the production UNet reaches the wmma build."""
+    if launches["conv3d_sm90"] != 13 * launches["conv3d_cin1"] or launches["conv3d_wmma"] != 0:
+        raise AssertionError(f"{what}: sm90 route took {launches['conv3d_sm90']} bf16 conv launches, want 13 per "
+                             f"enc0a launch ({launches['conv3d_cin1']}); wmma took {launches['conv3d_wmma']}, want 0")
 
 
 def gradicon_convs(width=REG_WIDTH, grid=REG_GRID):
@@ -347,6 +390,19 @@ FULL = dict(shape=(160, 384, 384), fc=(47.5, 52.5, None), tc=(31.5, 35.5, (80, 2
 SMALL = dict(shape=(48, 96, 96), fc=(27.5, 31.5, (24, 53, 48)), tc=(15.5, 19.5, (24, 60, 48)),
              atlas_fc=(27.5, 31.5, (24, 51, 46)), atlas_tc=(15.5, 19.5, (24, 57, 46)))
 
+# phase 5: a small instance registration, card against CPU. Tolerances set
+# from the same run of the JAX package against the port on the CPU, whose
+# largest gaps were: objective 3e-4 relative, mean inverse-consistency
+# error 6e-4 voxel, fold fraction 2e-5, mean map gap 8e-4 (Adam's near
+# sign steps turn rounding into whole steps at a few elements); the card's
+# sums (and in "exact" the scatter-add of the outer field's gradient)
+# round in other orders again
+INSTANCE_SMALL = dict(scales=(2, 1), steps_per_scale=(20, 20), lr=0.3)
+INSTANCE_SMALL_TOL = dict(objective_rel=5e-3, ice_mean_vox=0.02, fold_fraction=2e-3, map_mean=3e-3)
+# phase 6: (a) the CLI's default registration, (b) the accurate mode
+ACCURATE = {"a": dict(registration_mode="network", finetune_steps=20),
+            "b": dict(registration_mode="instance")}
+
 
 def build_pipeline(device, fixture, batch_size):
     from oai_analysis_2_tpu_torch.analysis_object import AnalysisObject
@@ -403,27 +459,14 @@ def small_knee_check(torch):
     return {"card": gs, "cpu": cs}
 
 
-def profile_knee(torch, pipe, knee) -> dict:
-    """One more run of the knee under torch.profiler: the device's busy time
-    (union of its event intervals) against the run's wall time, and device
-    milliseconds by kernel name. The profiler's own cost is in the wall."""
+def device_spans(prof):
+    """(device events, busy microseconds as the union of their intervals,
+    microseconds by event name) of a torch.profiler run."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        pipe.run(knee)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
                    if e.device_type == DeviceType.CUDA)
     by_name, busy_us, cur = {}, 0.0, None
-    # the "was" families are the builds that the enc0a (cin1), f32 and
-    # distance kernels replaced: the main path must not reach them
-    families = {"conv3d_sm90": "conv3d_sm90_kernel", "conv3d_cin1": "conv3d_cin1_kernel",
-                "conv3d_cin1_was": "conv3d_bf16_kernel",
-                "conv3d_f32": "conv3d_f32_ring_kernel", "point_triangle": "point_triangle_min_d2_fma_kernel",
-                "conv3d_f32_was": "conv3d_f32_kernel", "point_triangle_was": "point_triangle_min_d2_kernel"}
     for start, end, name in spans:
         by_name[name] = by_name.get(name, 0.0) + (end - start)
         if cur is None or start > cur[1]:
@@ -432,6 +475,27 @@ def profile_knee(torch, pipe, knee) -> dict:
         else:
             cur[1] = max(cur[1], end)
     busy_us += 0.0 if cur is None else cur[1] - cur[0]
+    return spans, busy_us, by_name
+
+
+def profile_knee(torch, pipe, knee) -> dict:
+    """One more run of the knee under torch.profiler: the device's busy time
+    (union of its event intervals) against the run's wall time, and device
+    milliseconds by kernel name. The profiler's own cost is in the wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pipe.run(knee)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans, busy_us, by_name = device_spans(prof)
+    # the "was" families are the builds that the enc0a (cin1), f32 and
+    # distance kernels replaced: the main path must not reach them
+    families = {"conv3d_sm90": "conv3d_sm90_kernel", "conv3d_cin1": "conv3d_cin1_kernel",
+                "conv3d_cin1_was": "conv3d_bf16_kernel",
+                "conv3d_f32": "conv3d_f32_ring_kernel", "point_triangle": "point_triangle_min_d2_fma_kernel",
+                "conv3d_f32_was": "conv3d_f32_kernel", "point_triangle_was": "point_triangle_min_d2_kernel"}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     return {
         "profiled_knee_s": wall,
@@ -441,6 +505,187 @@ def profile_knee(torch, pipe, knee) -> dict:
         "top_device_ms": {name[:90]: us / 1e3 for name, us in top},
         "kernel_device_ms": {fam: sum(us for name, us in by_name.items() if key in name) / 1e3
                              for fam, key in families.items()},
+    }
+
+
+def instance_objective(TG, pab, pba, a, b) -> float:
+    """The instance loss's value at given maps (gradicon.py:569-579 with f32
+    image warps): the number both devices' runs are held to."""
+    sim = TG.make_similarity("lncc+mse", 5)
+    return float(sim(a, TG.warp(b, pab)) + sim(b, TG.warp(a, pba)) + 0.5 * TG.gradicon_penalty(pab, pba)
+                 + 0.3 * (TG.diffusion_penalty(pab) + TG.diffusion_penalty(pba)))
+
+
+def instance_small_check(torch) -> dict:
+    """`register_pair_instance` on the small knee (scaled to [0, 1]) and its
+    atlas, both 2x average-pooled to 24x48x48, on the card and on the CPU,
+    in both gradient modes; the CPU evaluates both results."""
+    from oai_analysis_2_tpu_torch.models import gradicon as TG
+
+    knee, atlas = knee_and_atlas(**SMALL)
+    knee = knee / knee.max()
+    tol = INSTANCE_SMALL_TOL
+    out = {}
+    for mode in ("alternating", "exact"):
+        res, maps = {}, {}
+        for dev in ("cuda", "cpu"):
+            a = TG.downsample2x(torch.tensor(knee, device=dev))
+            b = TG.downsample2x(torch.tensor(atlas, device=dev))
+            t0 = time.perf_counter()
+            pab, pba = TG.register_pair_instance(a, b, gicon_grad=mode, **INSTANCE_SMALL)
+            pab, pba = pab.cpu(), pba.cpu()
+            secs = time.perf_counter() - t0
+            q = {k: float(v) for k, v in TG.map_quality_stats(pab, pba).items()}
+            res[dev] = {"seconds": secs, "objective": instance_objective(TG, pab, pba, a.cpu(), b.cpu()), **q}
+            maps[dev] = (pab, pba)
+        g, c = res["cuda"], res["cpu"]
+        map_mean = max(float((maps["cuda"][i] - maps["cpu"][i]).abs().mean()) for i in range(2))
+        res["map_mean_abs_diff"] = map_mean
+        bad = []
+        if not all(np.isfinite(v) for r in (g, c) for v in r.values()):
+            bad.append("non-finite result")
+        if abs(g["objective"] - c["objective"]) > tol["objective_rel"] * abs(c["objective"]):
+            bad.append(f"objective {g['objective']} vs {c['objective']}")
+        if abs(g["ice_mean_vox"] - c["ice_mean_vox"]) > tol["ice_mean_vox"]:
+            bad.append(f"ice_mean_vox {g['ice_mean_vox']} vs {c['ice_mean_vox']}")
+        for k in ("fold_fraction_ab", "fold_fraction_ba"):
+            if abs(g[k] - c[k]) > tol["fold_fraction"]:
+                bad.append(f"{k} {g[k]} vs {c[k]}")
+        if map_mean > tol["map_mean"]:
+            bad.append(f"mean map gap {map_mean}")
+        if bad:
+            raise AssertionError(f"instance small ({mode}): card and CPU disagree: {'; '.join(bad)}")
+        out[mode] = res
+    return out
+
+
+def accurate_knee(torch, cuda_conv, cuda_kernels, base, knee, name, kwargs) -> dict:
+    """One configuration of phase 6 on the full knee, sharing phase 4's
+    segmenter and atlas."""
+    from oai_analysis_2_tpu_torch.engine.atlas_products import thickness_map_stats
+    from oai_analysis_2_tpu_torch.engine.pipeline import KneePipeline
+
+    pipe = KneePipeline(base.segmenter, base.atlas, atlas_products=True, device="cuda", **kwargs)
+    # the atlas mapper segments the atlas once, on first use: its launches
+    # are counted apart from the knee's
+    reset_launches(cuda_conv, cuda_kernels)
+    t0 = time.perf_counter()
+    mapper = pipe._get_mapper()
+    torch.cuda.synchronize()
+    atlas_s = time.perf_counter() - t0
+    atlas_launches = read_launches(cuda_conv, cuda_kernels)
+    check_bf16_routes(atlas_launches, f"({name}) atlas segmentation")
+    if atlas_launches["conv3d_cin1"] <= 0:
+        raise AssertionError(f"({name}) atlas segmentation launched no conv")
+    t0 = time.perf_counter()
+    pipe.run(knee)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(cuda_conv, cuda_kernels)
+    t0 = time.perf_counter()
+    result = pipe.run(knee)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(cuda_conv, cuda_kernels)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    summary = summarize(result)
+    fc_med = summary["fc_inner_thickness_median_mm"]
+    if not 0.2 < fc_med < 10.0:
+        raise AssertionError(f"({name}) implausible FC thickness median {fc_med}")
+    maps = result.thickness_2d
+    for tissue in ("fc", "tc"):
+        for key in ("x", "y", "thickness", "map"):
+            arr = maps[f"{tissue}_{key}"]
+            if arr.size == 0 or not np.isfinite(arr).all():
+                raise AssertionError(f"({name}) {tissue}_{key}: empty or non-finite")
+    stats = thickness_map_stats(maps)
+    for tissue in ("fc", "tc"):
+        if not stats[f"{tissue}_raster_coverage"] > 0:
+            raise AssertionError(f"({name}) zero {tissue} raster coverage")
+    quality = result.registration_quality
+    if not quality or not all(np.isfinite(v) for v in quality.values()):
+        raise AssertionError(f"({name}) registration quality missing or non-finite: {quality}")
+    check_bf16_routes(launches, f"({name}) knee")
+    for kname in ("conv3d_sm90", "conv3d_cin1", "point_triangle"):
+        if launches[kname] <= 0:
+            raise AssertionError(f"({name}) kernel {kname} was not launched on the main path")
+    # the GradICON network is the only f32 conv: 3 stages x 2 directions x
+    # 10 convs in (a), none in instance optimization (b)
+    want_f32 = 60 if kwargs["registration_mode"] == "network" else 0
+    if launches["conv3d_f32"] != want_f32:
+        raise AssertionError(f"({name}) register took {launches['conv3d_f32']} f32 conv launches, want {want_f32}")
+    return {
+        "config": kwargs,
+        "registration_mode": pipe.registerer.mode,
+        "atlas_mapper_s": atlas_s,
+        "atlas_segmentation_launches": atlas_launches,
+        "atlas_points": {"fc": mapper.fc_atlas_inner.n_points, "tc": mapper.tc_atlas_inner.n_points},
+        "first_run_s": first_s,
+        "knee_seconds": wall,
+        "stage_seconds": {k: v["seconds"] for k, v in result.timings.items()},
+        "launches": launches,
+        "max_memory_allocated_gb": peak_gb,
+        "registration_quality": quality,
+        "thickness_maps": stats,
+        **summary,
+    }
+
+
+def instance_steps(torch, pipe, knee, steps=20) -> dict:
+    """Milliseconds per Adam step of instance optimization at each scale of
+    the 48x96x96 grid (the knee and atlas resampled onto it, identity
+    bases), and one step at scale 1 under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from oai_analysis_2_tpu_torch.engine.registration import _net_grid_reference
+    from oai_analysis_2_tpu_torch.models import gradicon as TG
+    from oai_analysis_2_tpu_torch.ops.intensity import percentile_window
+    from oai_analysis_2_tpu_torch.ops.resample import resample_image
+
+    grid = pipe.reg_config.grid_shape
+    pre = percentile_window(knee, 0.1, 99.9, 0.0, 1.0)
+    a = resample_image(pre, _net_grid_reference(pre, grid)).data.float()
+    b = resample_image(pipe.atlas, _net_grid_reference(pipe.atlas, grid)).data.float()
+    ms, problems = {}, {}
+    for scale in (4, 2, 1):
+        a_s, b_s = TG.pyramid(a, scale), TG.pyramid(b, scale)
+        ident = TG.identity_map(a_s.shape, a.device)
+        for mode in ("alternating", "exact") if scale == 1 else ("alternating",):
+            prob = TG.InstanceScale(ident, ident, a_s, b_s, gicon_grad=mode)
+            for _ in range(3):
+                prob.step()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                prob.step()
+            torch.cuda.synchronize()
+            ms[f"scale{scale}_{mode}"] = (time.perf_counter() - t0) / steps * 1e3
+            problems[(scale, mode)] = prob
+    prob = problems[(1, "alternating")]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prob.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans, busy_us, by_name = device_spans(prof)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
+    copies = sum(1 for _, _, n in spans if n.startswith(("Memcpy", "Memset")))
+    return {
+        "grid": list(grid),
+        "ms_per_step": ms,
+        "profiled_step": {
+            "scale": 1,
+            "gicon_grad": "alternating",
+            "wall_ms": wall * 1e3,
+            "device_events": len(spans),
+            "memcpy_memset_events": copies,
+            "device_busy_ms": busy_us / 1e3,
+            "device_busy_share": busy_us / 1e3 / (wall * 1e3) if spans else None,
+            "top_device_ms": {name[:90]: us / 1e3 for name, us in top},
+        },
     }
 
 
@@ -508,19 +753,12 @@ def main() -> int:
     log(f"phase full knee: first run {time.perf_counter() - t0:.2f} s")
 
     torch.cuda.reset_peak_memory_stats()
-    cuda_conv.reset_launches()
-    cuda_kernels.point_triangle_min_d2.launches = 0
+    reset_launches(cuda_conv, cuda_kernels)
     t0 = time.perf_counter()
     result = pipe.run(knee)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {
-        "conv3d_sm90": cuda_conv.conv3d.launches_sm90,
-        "conv3d_cin1": cuda_conv.conv3d.launches_cin1,
-        "conv3d_wmma": cuda_conv.conv3d.launches_wmma,
-        "conv3d_f32": cuda_conv.conv3d.launches_f32,
-        "point_triangle": cuda_kernels.point_triangle_min_d2.launches,
-    }
+    launches = read_launches(cuda_conv, cuda_kernels)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     for name in ("fc_probmap", "tc_probmap"):
@@ -539,11 +777,7 @@ def main() -> int:
     for name, n in launches.items():
         if name != "conv3d_wmma" and n <= 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
-    # each UNet forward runs 14 bf16 convs, enc0a's alone on the cin1 route;
-    # no conv of the production UNet reaches the wmma build
-    if launches["conv3d_sm90"] != 13 * launches["conv3d_cin1"] or launches["conv3d_wmma"] != 0:
-        raise AssertionError(f"sm90 route took {launches['conv3d_sm90']} bf16 conv launches, want 13 per "
-                             f"enc0a launch ({launches['conv3d_cin1']}); wmma took {launches['conv3d_wmma']}, want 0")
+    check_bf16_routes(launches, "full knee")
     for k in kernels:
         k["launches"] = launches[k["name"].split(":")[0]]
 
@@ -571,6 +805,33 @@ def main() -> int:
         if not device_ms[fam] > 0.0 or device_ms[f"{fam}_was"] != 0.0:
             raise AssertionError(f"profiled knee: {fam} ran {device_ms[fam]} ms in its kernel and "
                                  f"{device_ms[fam + '_was']} ms in the build it replaced")
+
+    # ---- 5. instance optimization, card vs CPU ---------------------------------
+    t0 = time.perf_counter()
+    inst_small = instance_small_check(torch)
+    log(f"phase instance small: card and CPU agree ({time.perf_counter() - t0:.1f} s): {json.dumps(inst_small)}")
+
+    # ---- 6. the full knee with fine-tuning or instance optimization and the
+    # atlas thickness maps ------------------------------------------------------
+    accurate = {}
+    for name, kwargs in ACCURATE.items():
+        t0 = time.perf_counter()
+        accurate[name] = accurate_knee(torch, cuda_conv, cuda_kernels, pipe, knee, name, kwargs)
+        log(f"phase accurate knee ({name}): second run {accurate[name]['knee_seconds']:.3f} s "
+            f"({time.perf_counter() - t0:.1f} s in all): {json.dumps(accurate[name])}")
+
+    for k in kernels:
+        fam = k["name"].split(":")[0]
+        k["launches_by_path"] = {"network": k["launches"],
+                                 **{f"{name}_atlas_segmentation": r["atlas_segmentation_launches"][fam]
+                                    for name, r in accurate.items()},
+                                 **{name: r["launches"][fam] for name, r in accurate.items()}}
+
+    # ---- 7. instance steps ------------------------------------------------------
+    t0 = time.perf_counter()
+    steps = instance_steps(torch, pipe, knee)
+    log(f"phase instance steps ({time.perf_counter() - t0:.1f} s): {json.dumps(steps)}")
+
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

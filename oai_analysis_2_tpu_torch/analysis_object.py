@@ -73,6 +73,7 @@ class AnalysisObject:
         overlap_size: Tuple[int, int, int] = (16, 16, 8),
         compute_dtype: str = "bfloat16",
         registration_mode: str = "auto",
+        registration_steps=60,
         device=None,
     ):
         self.device = resolve_device(device)
@@ -93,7 +94,11 @@ class AnalysisObject:
             compute_dtype=compute_dtype,
             device=self.device,
         ))
-        self.registerer = ICON_Registration(mode=registration_mode, device=self.device)
+        # registration_steps: instance-optimization steps per scale (an int or
+        # one count per scale), for mode "instance" or an "auto" that
+        # resolves to it
+        self.registerer = ICON_Registration(mode=registration_mode, instance_steps=registration_steps,
+                                            device=self.device)
         self.atlas_dir: Optional[Path] = None
         if isinstance(atlas_path, str) and atlas_path.startswith(PHANTOM):
             self.atlas_image: Image = _phantom_atlas(_parse_phantom_shape(atlas_path), self.device)

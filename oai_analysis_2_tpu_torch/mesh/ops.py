@@ -146,3 +146,42 @@ def get_distance(inner_mesh: Mesh, outer_mesh: Mesh, device=None):
     inner.point_data = distance_to_surface(inner.vertices, outer_mesh, device)
     outer.point_data = distance_to_surface(outer.vertices, inner_mesh, device)
     return inner, outer
+
+
+_NN_QUERY_CHUNK = 2048
+_NN_SOURCE_CHUNK = 8192
+
+
+def _nn_indices(query: torch.Tensor, source: torch.Tensor) -> torch.Tensor:
+    """Nearest source index per query point (port of ops.py:609-637): query
+    chunks scan source chunks with a running (best d2, best index), d2 as
+    sum((q - s)^2) in f32 as the JAX version forms it, and a later chunk
+    taking over only when strictly nearer, so a tie keeps the first index."""
+    out = torch.empty(len(query), dtype=torch.int64, device=query.device)
+    for q0 in range(0, len(query), _NN_QUERY_CHUNK):
+        qc = query[q0 : q0 + _NN_QUERY_CHUNK]
+        best_d2 = torch.full((len(qc),), float("inf"), dtype=torch.float32, device=query.device)
+        best_idx = torch.zeros(len(qc), dtype=torch.int64, device=query.device)
+        for s0 in range(0, len(source), _NN_SOURCE_CHUNK):
+            d2 = torch.sum((qc[:, None, :] - source[None, s0 : s0 + _NN_SOURCE_CHUNK, :]) ** 2, dim=-1)
+            local_d2, local = torch.min(d2, dim=1)
+            improve = local_d2 < best_d2
+            best_d2 = torch.where(improve, local_d2, best_d2)
+            best_idx = torch.where(improve, local + s0, best_idx)
+        out[q0 : q0 + _NN_QUERY_CHUNK] = best_idx
+    return out
+
+
+def map_attributes(source_mesh: Mesh, target_mesh: Mesh, device=None) -> Mesh:
+    """Transfer per-point scalars from source to target by closest point
+    (reference map_attributes, mesh_processing.py:400-407), the search on
+    `device`."""
+    if source_mesh.point_data is None:
+        raise ValueError("source mesh has no point_data to transfer")
+    dev = resolve_device(device)
+    src = torch.as_tensor(np.ascontiguousarray(source_mesh.vertices, np.float32), device=dev)
+    query = torch.as_tensor(np.ascontiguousarray(target_mesh.vertices, np.float32), device=dev)
+    idx = _nn_indices(query, src).cpu().numpy()
+    out = target_mesh.copy()
+    out.point_data = np.asarray(source_mesh.point_data)[idx]
+    return out

@@ -1,5 +1,6 @@
-"""Probability maps -> inner/outer thickness meshes (port of
-`get_thickness_meshes` and `_as_xyz`, `oai_analysis_2_tpu/mesh/processing.py:109-255`).
+"""Probability maps -> meshes (port of `get_mesh`, `_as_xyz` and
+`get_thickness_meshes`, `oai_analysis_2_tpu/mesh/processing.py:83-255`;
+`split_mesh` is exported here as there).
 
 Single-device form: marching cubes and smoothing on the card, component
 filtering and the k-means split on the host, the point-to-triangle
@@ -18,13 +19,31 @@ from oai_analysis_2_tpu_torch.core.device import synchronize
 from oai_analysis_2_tpu_torch.core.image import Image
 from oai_analysis_2_tpu_torch.mesh.components import filter_small_components
 from oai_analysis_2_tpu_torch.mesh.marching_cubes import marching_cubes
-from oai_analysis_2_tpu_torch.mesh.ops import distance_to_surface_tensor, smooth_meshes
-from oai_analysis_2_tpu_torch.mesh.split import split_meshes
+from oai_analysis_2_tpu_torch.mesh.ops import distance_to_surface_tensor, smooth_mesh, smooth_meshes
+from oai_analysis_2_tpu_torch.mesh.split import split_mesh, split_meshes
+from oai_analysis_2_tpu_torch.mesh.types import Mesh
+
+__all__ = ["get_mesh", "get_thickness_meshes", "split_mesh"]
 
 
 def _as_xyz(image: Image) -> torch.Tensor:
     """[z, y, x] image data -> [x, y, z] f32 volume on the image's device."""
     return image.data.to(torch.float32).permute(2, 1, 0).contiguous()
+
+
+def _spacing(image: Image):
+    return tuple(float(s) for s in image.spacing.cpu().numpy())
+
+
+def get_mesh(image: Image, num_iterations: int = 150, level: float = 0.5,
+             filter_threshold: int = 3000) -> Mesh:
+    """Probability map -> smoothed surface mesh: marching cubes at `level`
+    on the [x, y, z] volume with spacing-scaled coordinates, components of
+    `filter_threshold` cells or fewer dropped, Laplacian smoothing on the
+    image's device."""
+    raw = marching_cubes(_as_xyz(image), level, _spacing(image))
+    mesh = filter_small_components(raw, filter_threshold)
+    return smooth_mesh(mesh, num_iterations=num_iterations, device=image.device)
 
 
 def get_thickness_meshes(images, mesh_types, num_iterations: int = 150, level: float = 0.5,
@@ -47,7 +66,7 @@ def get_thickness_meshes(images, mesh_types, num_iterations: int = 150, level: f
             t = now
 
     extracted = [
-        marching_cubes(_as_xyz(im), level, tuple(float(s) for s in im.spacing.cpu().numpy()))
+        marching_cubes(_as_xyz(im), level, _spacing(im))
         for im in images
     ]
     mark("mc")

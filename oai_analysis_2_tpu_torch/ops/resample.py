@@ -43,12 +43,41 @@ def _lerp(a: torch.Tensor, b: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
     return a * (1 - f) + b * f
 
 
+class _ClipTies(torch.autograd.Function):
+    """`torch.clamp(x, lo, hi)` whose gradient is halved where x equals a
+    bound. JAX's `jnp.clip` is a max then a min, and each splits a tie's
+    gradient in two; `torch.clamp` passes all of it. Instance optimization
+    starts every scale at u = 0, where sample points sit exactly on grid
+    nodes, so the first step's gradient depends on this."""
+
+    @staticmethod
+    def forward(ctx, x, lo: float, hi: float):
+        ctx.save_for_backward(x)
+        ctx.bounds = (lo, hi)
+        return torch.clamp(x, lo, hi)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (x,) = ctx.saved_tensors
+        lo, hi = ctx.bounds
+        inside = ((x > lo) & (x < hi)).to(grad.dtype)
+        ties = ((x == lo) | (x == hi)).to(grad.dtype)
+        return grad * (inside + 0.5 * ties), None, None
+
+
+def clip_ties(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """clamp with JAX's tie gradient (`_ClipTies`)."""
+    return _ClipTies.apply(x, lo, hi)
+
+
 def _trilinear_gather(
     volume: torch.Tensor, idx_zyx: torch.Tensor, outside_value: float, z_first: bool = False
 ) -> torch.Tensor:
     """Trilinear sample of a (D,H,W) or (D,H,W,C) volume at continuous
     (..., 3) z,y,x indices (port of resample.py:81-165): inclusive 1e-3
-    inside test, clamped taps, flat 1-D gathers.
+    inside test, clamped taps, flat 1-D gathers, and JAX's gradient with
+    respect to the indices (the fractional weights' clip halves it at a
+    tie, `clip_ties`).
 
     z_first=True interpolates along z, then y, then x — the order of the
     JAX package's packed-neighbourhood gather (`pack=True`, :127-135), which
@@ -69,9 +98,9 @@ def _trilinear_gather(
     z1 = torch.clamp(z0 + 1, max=d - 1)
     y1 = torch.clamp(y0 + 1, max=h - 1)
     x1 = torch.clamp(x0 + 1, max=w - 1)
-    fz = torch.clamp(z - z0.to(z.dtype), 0.0, 1.0)
-    fy = torch.clamp(y - y0.to(y.dtype), 0.0, 1.0)
-    fx = torch.clamp(x - x0.to(x.dtype), 0.0, 1.0)
+    fz = clip_ties(z - z0.to(z.dtype), 0.0, 1.0)
+    fy = clip_ties(y - y0.to(y.dtype), 0.0, 1.0)
+    fx = clip_ties(x - x0.to(x.dtype), 0.0, 1.0)
 
     flat = volume.reshape((d * h * w,) + tuple(volume.shape[3:]))
 
@@ -93,7 +122,9 @@ def _trilinear_gather(
         c10 = _lerp(gather(z1, y0, x0), gather(z1, y0, x1), fx)
         c11 = _lerp(gather(z1, y1, x0), gather(z1, y1, x1), fx)
         out = _lerp(_lerp(c00, c01, fy), _lerp(c10, c11, fy), fz)
-    return torch.where(inside, out, torch.as_tensor(outside_value, dtype=out.dtype, device=out.device))
+    # a Python scalar, not a tensor: a 0-d tensor made on the host would be
+    # copied to the card, which waits for the stream on every call
+    return torch.where(inside, out, outside_value)
 
 
 def sample_displacement(disp: DisplacementField, points_xyz: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,9 @@
-"""The PyTorch port's network-mode registration against the JAX package.
+"""The PyTorch port's registration engine against the JAX package.
 
 Both packages load the shipped width-24 GradICON weights and register the
 same numpy phantoms on a (16, 32, 32) grid: the two maps, the physical
-displacement field and the quality stats are compared.
+displacement field and the quality stats are compared, in network mode, in
+network mode with fine-tuning, and in instance mode.
 """
 
 import warnings
@@ -91,12 +92,77 @@ def test_config_from_shipped_metadata():
 
 
 def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError):
-        TR.ICON_Registration(mode="instance", device="cpu")
-    with pytest.raises(NotImplementedError):
-        TR.ICON_Registration(mode="network", finetune_steps=5, device="cpu")
-    with pytest.raises(ValueError):
+    """Instance optimization and fine-tuning are ported: mode "instance" and
+    network mode with finetune_steps=5 construct and register (the shipped
+    weights on GRID); an unknown mode still raises ValueError."""
+    fixed = timage(random_phantom(np.random.default_rng(3), (12, 20, 20)), device="cpu")
+    moving = timage(random_phantom(np.random.default_rng(4), (12, 20, 20)), device="cpu")
+    inst = TR.ICON_Registration(mode="instance", config=TG.GradICONConfig(grid_shape=(8, 16, 16)),
+                                instance_scales=(2,), instance_steps=2, device="cpu")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        fine = TR.ICON_Registration(mode="network", config=TG.GradICONConfig(grid_shape=GRID, stage_width=24),
+                                    finetune_steps=5, device="cpu")
+    assert (inst.mode, inst.model, fine.mode, fine.finetune_steps) == ("instance", None, "network", 5)
+    for reg, grid in ((inst, (8, 16, 16)), (fine, GRID)):
+        phi = reg.register(fixed, moving)
+        assert phi.shape == grid and bool(torch.isfinite(phi.field).all())
+        assert set(reg.last_quality) >= {"ice_mean_vox", "fold_fraction_ab"}
+    with pytest.raises(ValueError, match="unknown registration mode"):
         TR.ICON_Registration(mode="bogus", device="cpu")
+
+
+def test_auto_without_matching_weights_is_instance():
+    """As in the JAX package: with weights of another width, "auto" resolves
+    to instance optimization."""
+    cfg = TG.GradICONConfig(grid_shape=GRID, stage_width=16)
+    assert JR.ICON_Registration(mode="auto", config=JG.GradICONConfig(grid_shape=GRID, stage_width=16)).mode \
+        == TR.ICON_Registration(mode="auto", config=cfg, device="cpu").mode == "instance"
+
+
+@pytest.mark.parametrize("gicon_grad", ["alternating", "exact"])
+def test_finetune_matches(pair, gicon_grad):
+    """Network + 5 fine-tuning steps (scale 2, lr 0.15): the fine-tune
+    starts from maps that agree to 1e-5, so the displacement field agrees
+    within 1e-3 mm on average and 0.2 mm everywhere (an element whose
+    first-step gradient is rounding noise moves a whole step either way),
+    the quality stats within 1e-3."""
+    a, b, meta_a, meta_b = pair
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        jreg = JR.ICON_Registration(mode="network", config=JG.GradICONConfig(grid_shape=GRID, stage_width=24),
+                                    finetune_steps=5, gicon_grad=gicon_grad)
+        treg = TR.ICON_Registration(mode="network", config=TG.GradICONConfig(grid_shape=GRID, stage_width=24),
+                                    finetune_steps=5, gicon_grad=gicon_grad, device="cpu")
+    jphi = jreg.register(jimage(a, **meta_a), jimage(b, **meta_b))
+    tphi = treg.register(timage(a, device="cpu", **meta_a), timage(b, device="cpu", **meta_b))
+    diff = np.abs(tphi.field.numpy() - np.asarray(jphi.field))
+    assert diff.mean() <= 1e-3 and diff.max() <= 0.2, (diff.mean(), diff.max())
+    jq, tq = jreg.last_quality, treg.last_quality
+    assert set(jq) == set(tq)
+    for k in jq:
+        assert abs(jq[k] - tq[k]) <= 1e-3, (k, jq[k], tq[k])
+
+
+def test_instance_mode_matches(pair):
+    """Instance mode, scales (4, 2), 10 steps each at the default lr (1.2
+    voxels a step) on GRID: both packages fold 28-34 % of their maps there,
+    far from convergence, where runs are not close element by element
+    (tests/test_torch_instance.py); held to fold fractions within 0.03,
+    inverse-consistency error within 10 % and mean |field| within 10 %."""
+    a, b, meta_a, meta_b = pair
+    kw = dict(mode="instance", instance_scales=(4, 2), instance_steps=(10, 10))
+    jreg = JR.ICON_Registration(config=JG.GradICONConfig(grid_shape=GRID), **kw)
+    treg = TR.ICON_Registration(config=TG.GradICONConfig(grid_shape=GRID), device="cpu", **kw)
+    jphi = jreg.register(jimage(a, **meta_a), jimage(b, **meta_b))
+    tphi = treg.register(timage(a, device="cpu", **meta_a), timage(b, device="cpu", **meta_b))
+    jmag, tmag = float(np.abs(np.asarray(jphi.field)).mean()), float(tphi.field.abs().mean())
+    assert abs(tmag - jmag) <= 0.1 * jmag
+    jq, tq = jreg.last_quality, treg.last_quality
+    for k in ("fold_fraction_ab", "fold_fraction_ba"):
+        assert abs(jq[k] - tq[k]) <= 0.03, (k, jq[k], tq[k])
+    for k in ("ice_mean_vox", "ice_mean_mm"):
+        assert abs(jq[k] - tq[k]) <= 0.1 * jq[k], (k, jq[k], tq[k])
 
 
 def test_transform_algebra_matches():
