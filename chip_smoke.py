@@ -16,7 +16,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    mma.sync kernel `cin1` at enc0a (Cin = 1), the f32 kernel at each of the
    ten convs of the finest GradICON stage (from the stage spec, at their
    grid sizes). A bf16 conv is checked with f32 output and with the bf16
-   output the main path takes (each its own build of the kernel). At each
+   output the main path takes (each its own build of the kernel); enc0b
+   (sm90) and enc0a (cin1) are checked once more on the batch-norm UNet's
+   route, without ReLU and with f32 output (rows named `...:bn`). At each
    sm90 and cin1 shape it also times the wmma build (which ran those convs
    before) and the sm90 kernel's loads-only or the cin1 kernel's
    stores-only and general-path builds; at each f32 shape and at the
@@ -54,14 +56,31 @@ Phases, each fatal on failure (exit code 1, no result line):
 7. instance steps: milliseconds per Adam step at each of the three scales
    (each gradient mode at scale 1), and one step at scale 1 (48x96x96)
    under torch.profiler: device milliseconds by kernel name, device events
-   per step and the device's busy share.
+   per step and the device's busy share;
+8. release layout: (a) a release-shaped tree under the git-ignored
+   `build/release_smoke/` with `OAI_TPU_DATA_DIR` pointing at it: the
+   production `UNet`'s threshold weights as the reference's torch
+   checkpoint (`ec*` / `dc*` names, written by `reference_state_dict`, the
+   exact inverse of the port's converter), its training config, phase 4's
+   atlas and the segmenter's probability maps of it, and the knee, all
+   written as NIfTI by the port; (b) the CLI's `pipeline` command
+   (`oai_analysis_2_tpu_torch.__main__.main`) on the knee file, in this
+   process, twice: the second run's read, stage and write seconds, 65
+   sm90 + 5 cin1 + 60 f32 conv and 4 distance launches, and the four VTK
+   files read back within 0.5 % in size and 1 % in mean thickness of phase
+   6 (a); (c) `KneePipeline.run_path` with the atlas maps read from NIfTI
+   (the mapper launches no conv), its thickness_2d file, raster coverage
+   within 0.005 and mean mapped thickness within 1 % of phase 6 (a); (d)
+   the segment stage of the knee with an identity batch-norm variant of
+   the checkpoint (the BN route), within 1e-3 of the fused route's maps,
+   and each route's segment once under torch.profiler.
 
 Before the last line it prints one JSON object `{"kernels": [...]}` (per
 kernel and conv route: launches on the reported run, max error against the
 plain version, kernel / plain / library milliseconds and the bound; sm90,
 cin1, f32 and distance rows add the replaced build's milliseconds, sm90
-rows the loads-only build's, the cin1 row the stores-only build's), then
-the card line.
+rows the loads-only build's, the cin1 row the stores-only build's; the
+`:bn` rows count the launches of phase 8 (d)), then the card line.
 The last line is `{"ok": true, "device": {...}}`. Without a CUDA card it
 exits with code 1 and prints no result. It imports nothing of JAX.
 """
@@ -221,29 +240,32 @@ def gradicon_convs(width=REG_WIDTH, grid=REG_GRID):
     return convs
 
 
-def conv_case(torch, F, cuda_conv, name, shape, cin, cout, dtype, tol, reps, clock=False):
-    """One conv shape: kernel vs plain version, times and bound."""
+def conv_case(torch, F, cuda_conv, name, shape, cin, cout, dtype, tol, reps, clock=False, bn=False):
+    """One conv shape: kernel vs plain version, times and bound. `bn`: the
+    batch-norm UNet's route (no ReLU, f32 output: BN runs after the conv)."""
     route = cuda_conv.conv3d_route(cin, cout, dtype)
+    relu = not bn
+    out_dtype = torch.float32 if bn else dtype  # the output type the path takes
     gen = torch.Generator(device="cuda").manual_seed(len(name) * 1000 + cin)
     x = torch.randn(shape + (cin,), device="cuda", generator=gen).to(dtype)
     k = (torch.randn((3, 3, 3, cin, cout), device="cuda", generator=gen) / (27 * cin) ** 0.5).to(dtype)
     b = torch.randn((cout,), device="cuda", generator=gen) * 0.1
-    want = cuda_conv.conv3d_reference(x, k, b, relu=True, out_dtype=torch.float32)
+    want = cuda_conv.conv3d_reference(x, k, b, relu=relu, out_dtype=torch.float32)
     # f32 output: the kernel's f32 accumulator and epilogue, held at 1e-4
     # where K is short (cin1: 27 products) or the operands are f32
     f32_tol = 1e-4 if route in ("cin1", "f32") else tol
-    got = cuda_conv.conv3d(x, k, b, relu=True, out_dtype=torch.float32)
+    got = cuda_conv.conv3d(x, k, b, relu=relu, out_dtype=torch.float32)
     err = err_f32 = check_close(f"conv3d {name} (f32 out)", got, want, f32_tol, f32_tol)
     del got
-    if dtype != torch.float32:
+    if out_dtype != torch.float32:
         # the output type the main path takes, another build of the kernel:
         # one cast of the f32 result, so within a bf16 rounding of the plain one
-        got = cuda_conv.conv3d(x, k, b, relu=True, out_dtype=dtype)
+        got = cuda_conv.conv3d(x, k, b, relu=relu, out_dtype=dtype)
         err = check_close(f"conv3d {name}", got, want, tol, tol)
         del got
     del want
-    ms = time_ms(torch, lambda: cuda_conv.conv3d(x, k, b, relu=True, out_dtype=dtype), reps)
-    plain_ms = time_ms(torch, lambda: cuda_conv.conv3d_reference(x, k, b, relu=True, out_dtype=dtype), 1)
+    ms = time_ms(torch, lambda: cuda_conv.conv3d(x, k, b, relu=relu, out_dtype=out_dtype), reps)
+    plain_ms = time_ms(torch, lambda: cuda_conv.conv3d_reference(x, k, b, relu=relu, out_dtype=out_dtype), 1)
     # yardstick: one cuDNN call on the channels-last view of the same data
     # (bias fused, ReLU not); never called by the port
     x_cl = x.permute(0, 4, 1, 2, 3)
@@ -253,10 +275,11 @@ def conv_case(torch, F, cuda_conv, name, shape, cin, cout, dtype, tol, reps, clo
     voxels = int(np.prod(shape))
     esize = x.element_size()
     flops = 2.0 * 27 * cin * cout * voxels
-    nbytes = voxels * cin * esize + 27 * cin * cout * esize + cout * 4 + voxels * cout * esize
+    out_size = torch.finfo(out_dtype).bits // 8
+    nbytes = voxels * cin * esize + 27 * cin * cout * esize + cout * 4 + voxels * cout * out_size
     peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
     bound_ops, bound_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    extra = {}
+    extra = {}  # other builds are timed at the ReLU route's rows only
     if route == "f32":
         # uncounted launches: the f32 build that this route replaced, and the
         # kernel's multiplies alone (no copies; the output is garbage)
@@ -269,7 +292,7 @@ def conv_case(torch, F, cuda_conv, name, shape, cin, cout, dtype, tol, reps, clo
         if clock:
             extra.update(clock_under_load(torch, lambda: cuda_conv.conv3d(x, k, b, relu=True, out_dtype=dtype),
                                           int(1500 / ms) + 1))
-    if route == "sm90":
+    if route == "sm90" and not bn:
         # uncounted launches of other builds at the same shape: the wmma
         # kernel, which ran every bf16 conv before the sm90 route, and the
         # sm90 kernel's load pipeline alone (no wgmma, no stores)
@@ -279,7 +302,7 @@ def conv_case(torch, F, cuda_conv, name, shape, cin, cout, dtype, tol, reps, clo
             "loads_ms": time_ms(torch, lambda: cuda_conv.launch(x, k, b, route="sm90", relu=True,
                                                                  out_dtype=dtype, loads_only=True), reps),
         }
-    if route == "cin1":
+    if route == "cin1" and not bn:
         # uncounted launches at enc0a's shape: the wmma build of
         # csrc/conv3d.cu, which ran enc0a before the cin1 route, the cin1
         # kernel's store path alone (bias + ReLU of zero staged and copied
@@ -296,15 +319,15 @@ def conv_case(torch, F, cuda_conv, name, shape, cin, cout, dtype, tol, reps, clo
     del x, k, b, x_cl, w_cl
     torch.cuda.empty_cache()
     return {
-        "name": f"conv3d_{route}:{name}",
+        "name": f"conv3d_{route}:{name}" + (":bn" if bn else ""),
         "route": "cuda",
         "source": CONV_SOURCES[route],
         "replaces": "oai_analysis_2_tpu/ops/pallas_conv.py:100",
-        "shape": f"x {list(shape) + [cin]} -> Cout {cout}",
+        "shape": f"x {list(shape) + [cin]} -> Cout {cout}" + (", no ReLU, f32 out (BN route)" if bn else ""),
         "launches": None,
         "max_abs_err": err,
         "tol": {"atol": tol, "rtol": tol},
-        **({} if dtype == torch.float32 else {"max_abs_err_f32_out": err_f32, "tol_f32_out": f32_tol}),
+        **({} if out_dtype == torch.float32 else {"max_abs_err_f32_out": err_f32, "tol_f32_out": f32_tol}),
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": max(bound_ops, bound_bytes),
@@ -634,6 +657,217 @@ def accurate_knee(torch, cuda_conv, cuda_kernels, base, knee, name, kwargs) -> d
     }
 
 
+RELEASE_ATLAS = "atlas_60_LEFT_baseline_NMI"
+# phase 8 (b): the CLI knee's launches (5 z-slabs x 14 bf16 convs, the
+# network's 60 f32 convs, 2 tissues x 2 distance directions)
+CLI_LAUNCHES = {"conv3d_sm90": 65, "conv3d_cin1": 5, "conv3d_wmma": 0, "conv3d_f32": 60, "point_triangle": 4}
+
+
+def reference_state_dict(torch, params: dict, n_dec: int) -> dict:
+    """The reference's torch state_dict (`ec*` / `dc*` Sequential names) of
+    a UNet tree: the exact inverse of the port's converter
+    (`oai_analysis_2_tpu_torch/utils/checkpoint.py`). Conv3d (O, I, D, H, W)
+    from DHWIO; the k2s2 ConvTranspose3d (I, O, 2, 2, 2); the k3s1p1
+    ConvTranspose3d from the forward kernel flipped back; BN as the
+    Sequential's second module."""
+    sd = {}
+
+    def put(name, p, weight):
+        sd[f"{name}.0.weight"] = torch.tensor(np.ascontiguousarray(weight))
+        if "bias" in p:
+            sd[f"{name}.0.bias"] = torch.tensor(p["bias"])
+        if "bn" in p:
+            for leaf, key in (("scale", "weight"), ("bias", "bias"), ("mean", "running_mean"), ("var", "running_var")):
+                sd[f"{name}.1.{key}"] = torch.tensor(p["bn"][leaf])
+
+    for key, p in params.items():
+        k = p["kernel"]
+        if key.startswith("enc"):
+            put(f"ec{2 * int(key[3]) + (key[4] == 'b')}", p, np.transpose(k, (4, 3, 0, 1, 2)))
+        elif key.startswith("dec"):
+            base, part = 3 * (n_dec - int(key[3])), key[4:]
+            if part == "up":
+                put(f"dc{base}", p, np.transpose(k, (3, 4, 0, 1, 2)))
+            else:
+                put(f"dc{base - 1 if part == 'a' else base - 2}", p,
+                    np.transpose(k[::-1, ::-1, ::-1], (3, 4, 0, 1, 2)))
+        else:
+            sd["dc0.weight"] = torch.tensor(np.ascontiguousarray(np.transpose(k, (4, 3, 0, 1, 2))))
+            sd["dc0.bias"] = torch.tensor(p["bias"])
+    return sd
+
+
+def identity_bn(params: dict, eps: float = 1e-5) -> dict:
+    """`params` with batch norm on every block but the head whose statistics
+    make it the identity: mean 0, var 1 - eps, scale 1, bias 0."""
+    out = {}
+    for name, p in params.items():
+        out[name] = dict(p)
+        if not name.startswith("head"):
+            c = p["kernel"].shape[-1]
+            out[name]["bn"] = {"scale": np.ones(c, np.float32), "bias": np.zeros(c, np.float32),
+                               "mean": np.zeros(c, np.float32), "var": np.full(c, 1.0 - eps, np.float32)}
+    return out
+
+
+def release_layout(torch, cuda_conv, cuda_kernels, base, knee, ref) -> dict:
+    """Phase 8: the release layout on disk and the CLI, held against phase 6
+    (a) (`ref`), which ran the same knee, atlas and weights in memory."""
+    import shutil
+    from pathlib import Path
+
+    from oai_analysis_2_tpu_torch import __main__ as cli
+    from oai_analysis_2_tpu_torch.analysis_object import AnalysisObject
+    from oai_analysis_2_tpu_torch.core.nifti import write_nifti
+    from oai_analysis_2_tpu_torch.engine.pipeline import KneePipeline
+    from oai_analysis_2_tpu_torch.engine.segmenter import Segmenter3DInPatchClassWise
+    from oai_analysis_2_tpu_torch.mesh.types import Mesh
+    from oai_analysis_2_tpu_torch.models.unet3d import NETWORK_SPECS, make_threshold_params
+    from oai_analysis_2_tpu_torch.ops.intensity import percentile_window
+
+    out = {}
+    # (a) a release-shaped tree: the production UNet's threshold weights as
+    # the reference's torch checkpoint (and a variant with identity BN), the
+    # atlas image and the segmenter's maps of it, and the knee
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent / "build" / "release_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    data = root / "data"
+    spec = NETWORK_SPECS["UNet"].replace(bias=True)
+    params = make_threshold_params(spec, gain=24.0, threshold=0.5)
+    setting = {"in_channels": 1, "n_classes": 2, "bias": True}
+    for name, tree, bn in (("models", params, False), ("models_bn", identity_bn(params), True)):
+        d = data / name
+        d.mkdir(parents=True)
+        torch.save({"model_state_dict": reference_state_dict(torch, tree, len(spec.dec)), "epoch": 600},
+                   d / "segmentation_model.pth.tar")
+        (d / "segmentation_train_config.pth.tar").write_text(json.dumps(
+            {"patch_size": [128, 128, 32], "model": "UNet", "model_setting": dict(setting, BN=bn)}))
+    atlas_dir = data / "atlases" / RELEASE_ATLAS
+    atlas_dir.mkdir(parents=True)
+    fc_p, tc_p = base.segmenter.segment(base.atlas, if_output_prob_map=True)
+    knee_path = root / "knee.nii.gz"
+    t1 = time.perf_counter()
+    for path, image in ((atlas_dir / "atlas_image.nii.gz", base.atlas), (atlas_dir / "atlas_fc.nii.gz", fc_p),
+                        (atlas_dir / "atlas_tc.nii.gz", tc_p), (knee_path, knee)):
+        write_nifti(image, path)
+    out["nifti_write_s"] = time.perf_counter() - t1
+    out["tree_s"] = time.perf_counter() - t0
+    out["knee_nii_gz_mb"] = knee_path.stat().st_size / 1e6
+    os.environ["OAI_TPU_DATA_DIR"] = str(data)
+
+    def check_meshes(out_dir, meta):
+        got = {}
+        for tissue in ("FC", "TC"):
+            for side in ("inner", "outer"):
+                key = f"{tissue.lower()}_{side}"
+                mesh = Mesh.load_vtk(out_dir / f"knee_{tissue}_{side}.vtk")
+                n, n_ref = mesh.n_points, ref["points"][key]
+                if mesh.point_data is None or len(mesh.point_data) != n or not np.isfinite(mesh.point_data).all():
+                    raise AssertionError(f"{out_dir.name}/{key}: thickness missing or non-finite after the read-back")
+                mean, mean_ref = float(mesh.point_data.mean()), ref[f"{key}_thickness_mean_mm"]
+                if abs(n - n_ref) > 0.005 * n_ref or abs(mean - mean_ref) > 0.01 * abs(mean_ref):
+                    raise AssertionError(f"{out_dir.name}/{key}: {n} points, mean {mean} mm; phase 6 (a) had "
+                                         f"{n_ref}, {mean_ref} mm")
+                got[key] = {"points": n, "thickness_mean_mm": mean}
+        if (meta["fc_points"], meta["tc_points"]) != (got["fc_inner"]["points"], got["tc_inner"]["points"]):
+            raise AssertionError(f"{out_dir.name}: VTK point counts differ from the run's {meta}")
+        return got
+
+    # (b) the CLI's pipeline command in this process, twice; the second run
+    # is reported
+    cli_dir = root / "out_cli"
+    for _ in range(2):
+        reset_launches(cuda_conv, cuda_kernels)
+        t0 = time.perf_counter()
+        meta = cli.main(["pipeline", str(knee_path), "-o", str(cli_dir)])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launches = read_launches(cuda_conv, cuda_kernels)
+    if launches != CLI_LAUNCHES:
+        raise AssertionError(f"CLI pipeline launches {launches}, want {CLI_LAUNCHES}")
+    out["cli"] = {"command_s": cli_s, "read_seconds": meta["read_seconds"], "write_seconds": meta["write_seconds"],
+                  "stage_seconds": {k: v["seconds"] for k, v in meta["timings"].items()},
+                  "registration_quality": meta["registration_quality"], "launches": launches,
+                  "meshes": check_meshes(cli_dir, meta)}
+
+    # (c) run_path with the atlas maps read from NIfTI: the mapper launches
+    # no conv
+    obj = AnalysisObject(device="cuda")
+    pipe = KneePipeline(obj.segmenter, obj.atlas_image, registration_mode="auto", finetune_steps=20,
+                        atlas_products=True, atlas_dir=obj.atlas_dir, device="cuda")
+    reset_launches(cuda_conv, cuda_kernels)
+    t0 = time.perf_counter()
+    mapper = pipe._get_mapper()
+    torch.cuda.synchronize()
+    mapper_s = time.perf_counter() - t0
+    mapper_launches = read_launches(cuda_conv, cuda_kernels)
+    if any(mapper_launches[k] for k in ("conv3d_sm90", "conv3d_cin1", "conv3d_wmma", "conv3d_f32")):
+        raise AssertionError(f"the atlas mapper segmented the atlas: {mapper_launches}")
+    atlas_dir_out = root / "out_atlas"
+    for _ in range(2):
+        meta_c = pipe.run_path(knee_path, output_dir=atlas_dir_out)
+    if not (atlas_dir_out / "knee_thickness_2d.npz").is_file() or meta_c.get("thickness_2d") is None:
+        raise AssertionError("run_path wrote no knee_thickness_2d.npz")
+    for tissue in ("fc", "tc"):
+        cov, cov_ref = meta_c[f"{tissue}_raster_coverage"], ref["thickness_maps"][f"{tissue}_raster_coverage"]
+        mean, mean_ref = meta_c[f"{tissue}_mean_thickness_mm"], ref["thickness_maps"][f"{tissue}_mean_thickness_mm"]
+        if abs(cov - cov_ref) > 0.005 or abs(mean - mean_ref) > 0.01 * abs(mean_ref):
+            raise AssertionError(f"atlas maps {tissue}: coverage {cov}, mean {mean} mm; phase 6 (a) had "
+                                 f"{cov_ref}, {mean_ref} mm")
+    out["atlas"] = {"mapper_s": mapper_s, "mapper_launches": mapper_launches,
+                    "atlas_points": {"fc": mapper.fc_atlas_inner.n_points, "tc": mapper.tc_atlas_inner.n_points},
+                    "read_seconds": meta_c["read_seconds"], "write_seconds": meta_c["write_seconds"],
+                    "stage_seconds": {k: v["seconds"] for k, v in meta_c["timings"].items()},
+                    "thickness_maps": {k: v for k, v in meta_c.items() if k.endswith(("_coverage", "_mm"))},
+                    "meshes": check_meshes(atlas_dir_out, meta_c)}
+
+    # (d) the segment stage of the full knee with identity batch norm: the
+    # BN route (convs without ReLU, f32 out; BN, ReLU, cast after) against
+    # the fused route's maps
+    pre = percentile_window(knee, 0.1, 99.9, 0.0, 1.0)
+    seg_bn = Segmenter3DInPatchClassWise(mode="pred", config=dict(
+        ckpoint_path=str(data / "models_bn" / "segmentation_model.pth.tar"),
+        training_config_file=str(data / "models_bn" / "segmentation_train_config.pth.tar"),
+        batch_size=4, overlap_size=(16, 16, 8), compute_dtype="bfloat16", device="cuda"))
+    seg_bn.pred_setup()
+    if seg_bn.model.enc0a.bn is None or seg_bn.model.head.bn is not None:
+        raise AssertionError("the BN checkpoint did not build a BN UNet")
+    want = obj.segmenter.segment(pre, if_output_prob_map=True)
+    seg_bn.segment(pre, if_output_prob_map=True)
+    reset_launches(cuda_conv, cuda_kernels)
+    t0 = time.perf_counter()
+    got = seg_bn.segment(pre, if_output_prob_map=True)
+    torch.cuda.synchronize()
+    bn_s = time.perf_counter() - t0
+    bn_launches = read_launches(cuda_conv, cuda_kernels)
+    if (bn_launches["conv3d_sm90"], bn_launches["conv3d_cin1"], bn_launches["conv3d_wmma"]) != (65, 5, 0):
+        raise AssertionError(f"BN segment launches {bn_launches}, want 65 sm90, 5 cin1, no wmma")
+    err = max(float((g.data - w.data).abs().max()) for g, w in zip(got, want))
+    if not err <= 1e-3 or not all(bool(g.data.isfinite().all()) for g in got):
+        raise AssertionError(f"identity-BN segment differs from the fused route by {err} (> 1e-3)")
+    out["bn_segment"] = {"segment_s": bn_s, "max_abs_err": err, "tol": 1e-3, "launches": bn_launches,
+                         "profiled": {name: profile_segment(torch, seg, pre)
+                                      for name, seg in (("bn", seg_bn), ("fused", obj.segmenter))}}
+    return out
+
+
+def profile_segment(torch, segmenter, pre) -> dict:
+    """One segment call under torch.profiler: wall, device busy time and
+    the largest device times by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        segmenter.segment(pre, if_output_prob_map=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans, busy_us, by_name = device_spans(prof)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_s": wall, "device_events": len(spans), "device_busy_s": busy_us / 1e6,
+            "top_device_ms": {name[:90]: us / 1e3 for name, us in top}}
+
+
 def instance_steps(torch, pipe, knee, steps=20) -> dict:
     """Milliseconds per Adam step of instance optimization at each scale of
     the 48x96x96 grid (the knee and atlas resampled onto it, identity
@@ -720,6 +954,10 @@ def main() -> int:
     kernels = [conv_case(torch, F, cuda_conv, name, shape, cin, cout, torch.bfloat16, 2e-2,
                          reps=5 if shape == SLAB and cin > 1 else 20)
                for name, shape, cin, cout in SEG_CONVS]
+    # the batch-norm UNet's route (no ReLU, f32 out) at enc0b (sm90) and enc0a (cin1)
+    kernels += [conv_case(torch, F, cuda_conv, name, shape, cin, cout, torch.bfloat16, 2e-2,
+                          reps=5 if cin > 1 else 20, bn=True)
+                for name, shape, cin, cout in SEG_CONVS if name in ("enc0b", "enc0a")]
     kernels += [conv_case(torch, F, cuda_conv, name, shape, cin, cout, torch.float32, 1e-4, reps=20,
                           clock=name == "stage2.dec1a")
                 for name, shape, cin, cout in gradicon_convs()]
@@ -831,6 +1069,18 @@ def main() -> int:
     t0 = time.perf_counter()
     steps = instance_steps(torch, pipe, knee)
     log(f"phase instance steps ({time.perf_counter() - t0:.1f} s): {json.dumps(steps)}")
+
+    # ---- 8. the release layout on disk and the CLI -----------------------------
+    t0 = time.perf_counter()
+    release = release_layout(torch, cuda_conv, cuda_kernels, pipe, knee, accurate["a"])
+    release["phase_s"] = time.perf_counter() - t0
+    for k in kernels:
+        fam = k["name"].split(":")[0]
+        k["launches_by_path"].update(cli=release["cli"]["launches"][fam],
+                                     bn_segment=release["bn_segment"]["launches"][fam])
+        if k["name"].endswith(":bn"):  # the BN route's own path
+            k["launches"] = release["bn_segment"]["launches"][fam]
+    log(f"phase release layout ({release['phase_s']:.1f} s, card {card}): {json.dumps(release)}")
 
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,12 +1,18 @@
-"""One-stop analysis facade, offline configuration (port of
-`oai_analysis_2_tpu/analysis_object.py`).
+"""One-stop analysis facade (port of `oai_analysis_2_tpu/analysis_object.py`).
+
+Built from the release layout on disk: `models_path` holds
+`segmentation_model.pth.tar` (the reference's torch checkpoint, preferred)
+or `segmentation_model.npz`, and `segmentation_train_config.pth.tar` (JSON);
+`atlas_path` is `atlas_image.nii.gz`, whose directory (`atlas_dir`) also
+holds the atlas probability maps `atlas_fc.nii.gz` / `atlas_tc.nii.gz`.
+`None` for either takes the release tree from `utils.data` (a pre-seeded
+`OAI_TPU_DATA_DIR` needs no network).
 
 `AnalysisObject.offline()` needs no download: a deterministic synthetic
 atlas (`random_phantom` with rng seed 60, as the JAX package builds it) and
 the full production `UNet` with threshold weights written once to
 `build/phantom_models/` at the root of the checkout (beside the kernels'
-`build/kernels/`). Construction from the release's downloaded
-models and atlas (and NIfTI reading) is not ported yet.
+`build/kernels/`).
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import numpy as np
 
 from oai_analysis_2_tpu_torch.core.device import resolve_device
 from oai_analysis_2_tpu_torch.core.image import Image, image_from_array
+from oai_analysis_2_tpu_torch.core.nifti import read_nifti
 from oai_analysis_2_tpu_torch.engine.registration import ICON_Registration
 from oai_analysis_2_tpu_torch.engine.segmenter import Segmenter3DInPatchClassWise
 from oai_analysis_2_tpu_torch.models.synthetic import random_phantom
@@ -80,12 +87,23 @@ class AnalysisObject:
         if isinstance(models_path, str) and models_path.startswith(PHANTOM):
             models_path = _phantom_models_dir()
         elif models_path is None:
-            raise NotImplementedError(
-                "downloading the release models is not ported; pass models_path=... or 'phantom'"
-            )
+            from oai_analysis_2_tpu_torch.utils.data import models_dir
+
+            try:
+                models_path = models_dir()
+            except Exception as e:  # noqa: BLE001 — downloads fail offline
+                raise RuntimeError(
+                    "could not fetch the release models tarball; pre-seed "
+                    "OAI_TPU_DATA_DIR, pass models_path=..., or use "
+                    "models_path='phantom' for an offline threshold-weights "
+                    "segmenter"
+                ) from e
         models_path = Path(models_path)
+        ckpt = models_path / "segmentation_model.pth.tar"
+        if not ckpt.exists() and (models_path / "segmentation_model.npz").exists():
+            ckpt = models_path / "segmentation_model.npz"
         self.segmenter = Segmenter3DInPatchClassWise(mode="pred", config=dict(
-            ckpoint_path=str(models_path / "segmentation_model.npz"),
+            ckpoint_path=str(ckpt),
             training_config_file=str(models_path / "segmentation_train_config.pth.tar"),
             batch_size=batch_size,
             overlap_size=overlap_size,
@@ -99,13 +117,25 @@ class AnalysisObject:
         # resolves to it
         self.registerer = ICON_Registration(mode=registration_mode, instance_steps=registration_steps,
                                             device=self.device)
+        # the directory of the atlas artifacts (atlas_fc/tc.nii.gz beside
+        # atlas_image.nii.gz); None for phantoms
         self.atlas_dir: Optional[Path] = None
         if isinstance(atlas_path, str) and atlas_path.startswith(PHANTOM):
             self.atlas_image: Image = _phantom_atlas(_parse_phantom_shape(atlas_path), self.device)
         else:
-            raise NotImplementedError(
-                "reading the release atlas (NIfTI) is not ported; use atlas_path='phantom'"
-            )
+            if atlas_path is None:
+                from oai_analysis_2_tpu_torch.utils.data import atlases_dir
+
+                try:
+                    atlas_path = atlases_dir() / "atlas_60_LEFT_baseline_NMI" / "atlas_image.nii.gz"
+                except Exception as e:  # noqa: BLE001 — downloads fail offline
+                    raise RuntimeError(
+                        "could not fetch the release atlas tarball; pre-seed "
+                        "OAI_TPU_DATA_DIR, pass atlas_path=..., or use "
+                        "atlas_path='phantom' for an offline synthetic atlas"
+                    ) from e
+            self.atlas_image = read_nifti(atlas_path, device=self.device)
+            self.atlas_dir = Path(atlas_path).parent
 
     @classmethod
     def offline(cls, atlas_shape: str = "phantom", **kwargs) -> "AnalysisObject":

@@ -16,6 +16,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 
 from oai_analysis_2_tpu_torch.core.device import resolve_device
+from oai_analysis_2_tpu_torch.core.nifti import read_nifti
 from oai_analysis_2_tpu_torch.mesh.ops import map_attributes
 from oai_analysis_2_tpu_torch.mesh.processing import get_mesh, split_mesh
 from oai_analysis_2_tpu_torch.mesh.projection import project_thickness, rasterize_thickness
@@ -58,18 +59,18 @@ class AtlasThicknessMapper:
     def from_segmenter(cls, segmenter, atlas_image, atlas_dir: Optional[Path] = None,
                        grid_size: Tuple[int, int] = _GRID,
                        filter_threshold: int = 3000) -> "AtlasThicknessMapper":
-        """Build the atlas inner meshes by segmenting the atlas image with
-        `segmenter` (on the atlas image's device). The release's atlas
-        probability maps (atlas_fc/tc.nii.gz in `atlas_dir`) need NIfTI
-        reading, which is not ported: such a directory raises."""
-        if atlas_dir is not None and all(
-            (Path(atlas_dir) / f).exists() for f in ("atlas_fc.nii.gz", "atlas_tc.nii.gz")
-        ):
-            raise NotImplementedError(
-                "reading the release atlas probability maps (NIfTI) is not ported; "
-                "leave atlas_dir unset to segment the atlas image"
-            )
-        fc_p, tc_p = segmenter.segment(atlas_image, if_output_prob_map=True)
+        """Build the atlas inner meshes on the atlas image's device from the
+        release's atlas probability maps (atlas_fc/tc.nii.gz in `atlas_dir`)
+        when both exist, else by segmenting the atlas image with
+        `segmenter`."""
+        fc_p = tc_p = None
+        if atlas_dir is not None:
+            fc_file, tc_file = Path(atlas_dir) / "atlas_fc.nii.gz", Path(atlas_dir) / "atlas_tc.nii.gz"
+            if fc_file.exists() and tc_file.exists():
+                fc_p = read_nifti(fc_file, device=atlas_image.device)
+                tc_p = read_nifti(tc_file, device=atlas_image.device)
+        if fc_p is None:
+            fc_p, tc_p = segmenter.segment(atlas_image, if_output_prob_map=True)
         fc_inner, _ = split_mesh(get_mesh(fc_p, filter_threshold=filter_threshold), mesh_type="FC")
         tc_inner, _ = split_mesh(get_mesh(tc_p, filter_threshold=filter_threshold), mesh_type="TC")
         return cls(fc_inner, tc_inner, grid_size=grid_size, device=atlas_image.device)

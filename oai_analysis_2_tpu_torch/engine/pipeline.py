@@ -3,20 +3,24 @@ thickness [-> atlas_map] (port of `oai_analysis_2_tpu/engine/pipeline.py:30-182`
 
 Every stage runs on the pipeline's device and feeds the next there; the
 per-stage seconds are wall times with the card synchronized at each stage
-end. NIfTI I/O (`run_path`) is not ported yet (ROADMAP.md).
+end. `run_path` reads a NIfTI knee and writes the meshes, the atlas maps
+and a metadata dict, timing the read and the writes apart from `run`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from pathlib import Path
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from oai_analysis_2_tpu_torch.core.device import resolve_device
 from oai_analysis_2_tpu_torch.core.image import Image
-from oai_analysis_2_tpu_torch.engine.atlas_products import AtlasThicknessMapper
+from oai_analysis_2_tpu_torch.core.nifti import read_nifti
+from oai_analysis_2_tpu_torch.engine.atlas_products import AtlasThicknessMapper, thickness_map_stats
 from oai_analysis_2_tpu_torch.engine.registration import ICON_Registration
 from oai_analysis_2_tpu_torch.engine.segmenter import Segmenter3DInPatchClassWise
 from oai_analysis_2_tpu_torch.mesh.processing import get_thickness_meshes
@@ -69,8 +73,9 @@ class KneePipeline:
         bf16 during the warp. atlas_products: True (or a prebuilt
         `AtlasThicknessMapper`) also maps each knee's inner thickness onto
         the atlas meshes and a fixed 2D grid (`KneeResult.thickness_2d`);
-        the atlas meshes come from segmenting the atlas image once, or from
-        `atlas_dir`'s probability maps (not ported: NIfTI)."""
+        the atlas meshes come from `atlas_dir`'s probability maps
+        (atlas_fc/tc.nii.gz) or, without them, from segmenting the atlas
+        image once."""
         if warp_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"warp_dtype must be 'float32' or 'bfloat16', got {warp_dtype!r}")
         self.device = resolve_device(device)
@@ -133,3 +138,42 @@ class KneePipeline:
             thickness_2d=thickness_2d,
             registration_quality=self.registerer.last_quality,
         )
+
+    def run_path(self, nifti_path, output_dir: Optional[Path] = None, image: Optional[Image] = None) -> dict:
+        """Read a NIfTI knee (unless `image` is given), run it, and write
+        `<stem>_{FC,TC}_{inner,outer}.vtk` and, with atlas products,
+        `<stem>_thickness_2d.npz` into `output_dir`. Returns the JSON-ready
+        metadata of the JAX package's `run_path` (`engine/pipeline.py:184-220`)
+        plus `read_seconds` and `write_seconds`, the host time of the read
+        and of the writes."""
+        t0 = time.perf_counter()
+        image = read_nifti(nifti_path, device=self.device) if image is None else image
+        read_seconds = time.perf_counter() - t0
+        result = self.run(image)
+        meta = {
+            "input": str(nifti_path),
+            "timings": result.timings,
+            "fc_points": result.fc_inner.n_points,
+            "tc_points": result.tc_inner.n_points,
+        }
+        if result.registration_quality is not None:
+            meta["registration_quality"] = result.registration_quality
+        if result.thickness_2d is not None:
+            meta.update(thickness_map_stats(result.thickness_2d))
+        t0 = time.perf_counter()
+        if output_dir is not None:
+            output_dir = Path(output_dir)
+            output_dir.mkdir(parents=True, exist_ok=True)
+            stem = Path(str(nifti_path)).name.split(".")[0]
+            result.fc_inner.save_vtk(output_dir / f"{stem}_FC_inner.vtk")
+            result.tc_inner.save_vtk(output_dir / f"{stem}_TC_inner.vtk")
+            result.fc_outer.save_vtk(output_dir / f"{stem}_FC_outer.vtk")
+            result.tc_outer.save_vtk(output_dir / f"{stem}_TC_outer.vtk")
+            if result.thickness_2d is not None:
+                t2d = output_dir / f"{stem}_thickness_2d.npz"
+                np.savez_compressed(t2d, **result.thickness_2d)
+                meta["thickness_2d"] = str(t2d)
+            meta["outputs"] = str(output_dir)
+        meta["read_seconds"] = round(read_seconds, 4)
+        meta["write_seconds"] = round(time.perf_counter() - t0, 4)
+        return meta

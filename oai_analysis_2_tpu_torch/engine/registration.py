@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
+import zipfile
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -30,6 +31,11 @@ from oai_analysis_2_tpu_torch.models.gradicon import (
     register_pair_instance,
 )
 from oai_analysis_2_tpu_torch.ops.resample import DisplacementField, resample_image
+
+
+# what reading a damaged or foreign weights file raises (np.load, the
+# metadata's JSON, a missing key)
+_UNREADABLE = (OSError, EOFError, KeyError, ValueError, zipfile.BadZipFile)
 
 
 def _net_grid_reference(image: Image, grid_shape_zyx) -> Image:
@@ -65,6 +71,7 @@ def register_pair(
     image_a: Image,
     image_b: Image,
     model: Optional[GradICON] = None,
+    params: Optional[List[dict]] = None,
     config: Optional[GradICONConfig] = None,
     instance_steps=(80, 60, 40),
     instance_scales: Tuple[int, ...] = (4, 2, 1),
@@ -81,15 +88,22 @@ def register_pair(
     """(phi_AB, phi_BA) as displacement fields; phi_AB pulls A-grid data onto
     B's grid (port of registration.py:131-244).
 
-    With `model` (weights loaded): one network forward pass, then
-    `finetune_steps` of instance optimization per scale in
-    `finetune_scales` at `finetune_lr`, starting from the network's maps.
-    Without: instance optimization from the identity (`instance_scales`,
-    `instance_steps`). `b_on_grid` is image_b already resampled onto its
-    registration grid (the atlas cache). `gicon_grad` (None: the package
-    default) and `early_stop` are `register_pair_instance`'s. `quality_out`
-    receives the inverse-consistency error (voxels and mm) and
-    folded-Jacobian fractions as 0-d tensors."""
+    With `model`: one network forward pass, then `finetune_steps` of
+    instance optimization per scale in `finetune_scales` at `finetune_lr`,
+    starting from the network's maps. `params` (a stage-params list), when
+    given, is loaded onto `model` first; a model that never had weights
+    loaded raises `ValueError`. Without a model: instance optimization from
+    the identity (`instance_scales`, `instance_steps`). `b_on_grid` is
+    image_b already resampled onto its registration grid (the atlas cache).
+    `gicon_grad` (None: the package default) and `early_stop` are
+    `register_pair_instance`'s. `quality_out` receives the
+    inverse-consistency error (voxels and mm) and folded-Jacobian fractions
+    as 0-d tensors."""
+    if model is not None:
+        if params is not None:
+            model.load_params(params)
+        if not model.loaded:
+            raise ValueError("network-mode registration without weights: call load_params() or pass params")
     gicon_grad = INSTANCE_DEFAULT_GICON_GRAD if gicon_grad is None else gicon_grad
     cfg = config or (model.config if model is not None else GradICONConfig())
     grid_a = _net_grid_reference(image_a, cfg.grid_shape)
@@ -196,7 +210,10 @@ class ICON_Registration:
     def _config_from_shipped_meta() -> Optional[GradICONConfig]:
         if not default_gradicon_weights_path().exists():
             return None
-        _, meta = load_gradicon_checkpoint()
+        try:
+            _, meta = load_gradicon_checkpoint()
+        except _UNREADABLE:  # as the JAX package: an unreadable file means the default config
+            return None
         if not meta:
             return None
         fields = {f.name for f in dataclasses.fields(GradICONConfig)}
@@ -207,7 +224,10 @@ class ICON_Registration:
         stage count and width."""
         if not default_gradicon_weights_path().exists():
             return False
-        params, _ = load_gradicon_checkpoint()
+        try:
+            params, _ = load_gradicon_checkpoint()
+        except _UNREADABLE:  # as the JAX package: an unreadable file means instance mode
+            return False
         if len(params) != len(self.config.scales):
             return False
         if int(params[0]["enc0a"]["kernel"].shape[-1]) != self.config.stage_width:

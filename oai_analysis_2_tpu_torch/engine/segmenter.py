@@ -6,10 +6,11 @@ x,y-spanning z-slabs), each tile batch runs through the UNet, the tiles'
 central regions are written into a preallocated canvas, and a boundary
 margin is zeroed with the reference's crop-axis quirk.
 
-Config keys mirror the reference: ckpoint_path (a native `.npz`),
-training_config_file, batch_size, overlap_size, output_prob, output_itk,
-plus `compute_dtype` ("bfloat16" | "float32"), `inference_patch_size` and
-`device` (None means "cuda"; the JAX package ignored this key).
+Config keys mirror the reference: ckpoint_path (the reference's torch
+`.pth.tar`, converted on load, or a native `.npz`), training_config_file,
+batch_size, overlap_size, output_prob, output_itk, plus `compute_dtype`
+("bfloat16" | "float32"), `inference_patch_size` and `device` (None means
+"cuda"; the JAX package ignored this key).
 """
 
 from __future__ import annotations
@@ -24,7 +25,12 @@ from oai_analysis_2_tpu_torch.core.device import resolve_device
 from oai_analysis_2_tpu_torch.core.image import Image
 from oai_analysis_2_tpu_torch.models.unet3d import UNet3D, get_network
 from oai_analysis_2_tpu_torch.ops.tiling import Partition
-from oai_analysis_2_tpu_torch.utils.checkpoint import carry_params, load_checkpoint
+from oai_analysis_2_tpu_torch.utils.checkpoint import (
+    carry_params,
+    convert_torch_unet_state_dict,
+    load_checkpoint,
+    load_torch_checkpoint,
+)
 from oai_analysis_2_tpu_torch.utils.config import load_json_to_dict
 
 
@@ -99,17 +105,17 @@ class Segmenter3DInPatchClassWise:
         dtype = torch.bfloat16 if self.config.get("compute_dtype", "bfloat16") == "bfloat16" else torch.float32
         self.model = UNet3D(spec, compute_dtype=dtype, device=self.device)
         ckpt = self.config.get("ckpoint_path")
-        if not ckpt or Path(ckpt).suffix != ".npz":
-            raise NotImplementedError(
-                "the PyTorch package reads native .npz checkpoints only; the reference's "
-                ".pth.tar conversion is not ported yet"
-            )
-        if not Path(ckpt).is_file():
+        if not ckpt or not Path(ckpt).is_file():
             raise ValueError(f"no checkpoint found at '{ckpt}'")
-        state = load_checkpoint(ckpt)
-        carry_params(self.model, state["params"])
-        self.epoch = int(state.get("epoch", 0))
-        self.best_score = float(state.get("best_score", 0.0))
+        if Path(ckpt).suffix == ".npz":
+            state = load_checkpoint(ckpt)
+            params = state["params"]
+            self.epoch = int(state.get("epoch", 0))
+            self.best_score = float(state.get("best_score", 0.0))
+        else:  # the reference's torch checkpoint
+            sd, self.epoch, self.best_score = load_torch_checkpoint(ckpt)
+            params = convert_torch_unet_state_dict(sd, spec)
+        carry_params(self.model, params)
         self.ready = True
 
     def partition_for(self, volume_shape: Tuple[int, int, int], n_knees: int = 1) -> Partition:
@@ -224,3 +230,23 @@ class Segmenter3DInPatchClassWise:
         if if_output_itk and isinstance(image, Image):
             return image.with_data(fc), image.with_data(tc)
         return fc, tc
+
+    def test(self, pairs, threshold: float = 0.5) -> dict:
+        """Dice of the loaded model on (image, label) pairs (port of
+        `oai_analysis_2_tpu/engine/segmenter.py:364-386`): each image runs
+        the production `segment` path; a label is (C, D, H, W) or a pair of
+        per-class volumes. Returns per-volume [FC, TC] Dice and their mean."""
+        results = []
+        for image, label in pairs:
+            fc, tc = self.segment(image, if_output_prob_map=True, if_output_itk=False)
+            preds = [fc.cpu().numpy() > threshold, tc.cpu().numpy() > threshold]
+            label = label.cpu().numpy() if torch.is_tensor(label) else np.asarray(label)
+            labels = [label[c] for c in range(label.shape[0])] if label.ndim == 4 else list(label)
+            dices = []
+            for p, lab in zip(preds, labels):
+                lab = np.asarray(lab) > 0.5
+                denom = p.sum() + lab.sum()
+                dices.append(float(2.0 * np.logical_and(p, lab).sum() / denom) if denom else 1.0)
+            results.append(dices)
+        arr = np.asarray(results, np.float64)
+        return {"per_volume_dice": results, "mean_dice": arr.mean(axis=0).tolist()}

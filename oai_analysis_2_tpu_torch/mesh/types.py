@@ -91,10 +91,17 @@ class Mesh:
                 faces = flat[:, 1:].astype(np.int32)
                 i += 3 + total
             elif t == "SCALARS":
-                n_comp_i = i + 5  # SCALARS name type [1] LOOKUP_TABLE default
+                # SCALARS name type [numComp] [LOOKUP_TABLE name], then the
+                # values (the JAX package's reader starts one token early
+                # and fails on its own files)
+                j = i + 3
+                if tokens[j].isdigit():
+                    j += 1
+                if tokens[j].upper() == "LOOKUP_TABLE":
+                    j += 2
                 n = len(verts)
-                pdata = np.array(tokens[n_comp_i : n_comp_i + n], np.float32)
-                i = n_comp_i + n
+                pdata = np.array(tokens[j : j + n], np.float32)
+                i = j + n
             else:
                 i += 1
         return Mesh(verts, faces, point_data=pdata)

@@ -248,10 +248,14 @@ class GradICON(nn.Module):
         self.stages = nn.ModuleList(
             UNet3D(_stage_spec(config.stage_width), torch.float32, dev) for _ in config.scales
         )
+        # the stage UNets start at zero (an identity map); `register_pair`
+        # refuses a model whose weights were never loaded
+        self.loaded = False
 
     def load_params(self, params_list: List[dict]) -> None:
         """Carry a JAX stage-params list onto the stage UNets."""
         carry_params(self, {"stages": {str(i): p for i, p in enumerate(params_list)}})
+        self.loaded = True
 
     def _stage_increment(self, stage: UNet3D, a_s, b_warp_s):
         net_in = torch.stack([a_s, b_warp_s], dim=-1)[None]
@@ -278,6 +282,13 @@ class GradICON(nn.Module):
 def default_gradicon_weights_path() -> Path:
     """The JAX package's shipped weights file, read as data by path."""
     return Path(__file__).resolve().parents[2] / "oai_analysis_2_tpu" / "weights" / "gradicon.npz"
+
+
+def load_gradicon_params(path=None) -> List[dict]:
+    """The stage-params list of a native GradICON checkpoint (port of
+    `oai_analysis_2_tpu/models/gradicon.py:359-363`)."""
+    params, _ = load_gradicon_checkpoint(path)
+    return params
 
 
 def load_gradicon_checkpoint(path=None) -> Tuple[List[dict], dict]:

@@ -8,7 +8,11 @@ the module one to one (`utils.checkpoint.carry_params`).
 Routing, as on the TPU's opt-in Pallas path but for every layer: each
 3x3x3 conv goes through the hand-written kernel (`ops.cuda_conv.conv3d`,
 bias + ReLU + cast fused); the k2s2 upconv and the 1x1x1 head are plain
-products (`torch.matmul`), which the JAX package leaves to XLA.
+products (`torch.matmul`), which the JAX package leaves to XLA. A
+batch-norm spec (inference statistics, JAX `unet3d.py:242-279`) puts BN
+between a block's conv and its ReLU: its convs return the f32 accumulator
+plus bias (`relu=False, out_dtype=torch.float32`), BN and ReLU run in f32,
+then one cast to the compute dtype; the upconv gets BN before its ReLU too.
 """
 
 from __future__ import annotations
@@ -76,9 +80,13 @@ NETWORK_SPECS: Dict[str, UNetSpec] = {
 }
 
 
+def get_available_networks():
+    return list(NETWORK_SPECS.keys())
+
+
 def get_network(name: str) -> UNetSpec:
     if name not in NETWORK_SPECS:
-        raise KeyError(f"Network {name} is not available! Choose from: {list(NETWORK_SPECS)}")
+        raise KeyError(f"Network {name} is not available! Choose from: {get_available_networks()}")
     return NETWORK_SPECS[name]
 
 
@@ -142,16 +150,35 @@ def make_threshold_params(spec: UNetSpec, gain: float = 24.0, threshold: float =
     return params
 
 
+class _BatchNorm(nn.Module):
+    """Inference batch norm of one block: the JAX tree's `bn` leaves, the
+    affine pair as parameters and the running statistics as buffers."""
+
+    def __init__(self, channels: int, device):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(channels, device=device), requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(channels, device=device), requires_grad=False)
+        self.register_buffer("mean", torch.zeros(channels, device=device))
+        self.register_buffer("var", torch.ones(channels, device=device))
+
+    def forward(self, y: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+        """(y - mean) * (rsqrt(var + eps) * scale) + bias, in f32 (JAX
+        `_bn_inference`)."""
+        inv = torch.rsqrt(self.var.to(torch.float32) + eps)
+        return (y - self.mean) * (inv * self.scale) + self.bias
+
+
 class _Block(nn.Module):
     """One conv's parameters, named like the JAX tree's leaves."""
 
-    def __init__(self, kshape, bias_shape, device):
+    def __init__(self, kshape, bias_shape, device, batchnorm: bool = False):
         super().__init__()
         self.kernel = nn.Parameter(torch.zeros(kshape, device=device), requires_grad=False)
         if bias_shape is not None:
             self.bias = nn.Parameter(torch.zeros(bias_shape, device=device), requires_grad=False)
         else:
             self.bias = None
+        self.bn = _BatchNorm(kshape[-1], device) if batchnorm else None
 
 
 def maxpool2x(x: torch.Tensor) -> torch.Tensor:
@@ -193,17 +220,26 @@ class UNet3D(nn.Module):
 
     def __init__(self, spec: UNetSpec, compute_dtype=torch.float32, device=None):
         super().__init__()
-        if spec.batchnorm:
-            raise NotImplementedError("batch-norm UNet specs are not ported yet")
         self.spec = spec
         self.compute_dtype = compute_dtype
         dev = resolve_device(device)
         for name, leaves in param_shapes(spec).items():
-            self.add_module(name, _Block(leaves["kernel"], leaves.get("bias"), dev))
+            # every block but the 1x1x1 heads carries BN in a BN spec
+            bn = spec.batchnorm and not name.startswith("head")
+            self.add_module(name, _Block(leaves["kernel"], leaves.get("bias"), dev, batchnorm=bn))
 
     def _conv(self, x: torch.Tensor, name: str) -> torch.Tensor:
         blk = getattr(self, name)
-        return conv3d(x, blk.kernel.to(x.dtype).contiguous(), blk.bias, relu=True, out_dtype=self.compute_dtype)
+        kernel = blk.kernel.to(x.dtype).contiguous()
+        if blk.bn is None:
+            return conv3d(x, kernel, blk.bias, relu=True, out_dtype=self.compute_dtype)
+        y = conv3d(x, kernel, blk.bias, relu=False, out_dtype=torch.float32)
+        return torch.relu(blk.bn(y)).to(self.compute_dtype)
+
+    def _up(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        blk = getattr(self, name)
+        y = upconv2x(x, blk)
+        return torch.relu(y if blk.bn is None else blk.bn(y))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         spec = self.spec
@@ -217,7 +253,7 @@ class UNet3D(nn.Module):
                 skips.append(x)
                 x = maxpool2x(x).contiguous()
         for li in range(len(spec.dec)):
-            up = torch.relu(upconv2x(x, getattr(self, f"dec{li}up")))
+            up = self._up(x, f"dec{li}up")
             skip = skips[len(skips) - 1 - li]
             x = torch.cat([up.to(cd), skip.to(cd)], dim=-1)
             x = self._conv(x, f"dec{li}a")

@@ -1,4 +1,5 @@
-"""Intensity windowing (port of `oai_analysis_2_tpu/ops/intensity.py:17-38`)."""
+"""Intensity windowing, normalisation and comparison (port of
+`oai_analysis_2_tpu/ops/intensity.py:17-64`)."""
 
 from __future__ import annotations
 
@@ -48,3 +49,27 @@ def percentile_window(
     """The reference's `image_normalize`: percentile window -> [out_min, out_max]."""
     lo, hi = _percentiles(image.data.to(torch.float32), (window_min_perc, window_max_perc))
     return intensity_window(image, lo, hi, out_min, out_max)
+
+
+def normalize_image(image: Image) -> Image:
+    """Zero-mean unit-variance (ITK NormalizeImageFilter; population std)."""
+    x = image.data.to(torch.float32)
+    return image.with_data((x - x.mean()) / torch.clamp(x.std(correction=0), min=1e-20))
+
+
+def comparison_sum(a: Image, b: Image) -> torch.Tensor:
+    """Summed absolute voxel difference, the reference's regression metric."""
+    return (a.data.to(torch.float32) - b.data.to(torch.float32)).abs().sum()
+
+
+def checkerboard(a: Image, b: Image, pattern=(4, 4, 4)) -> Image:
+    """Alternate blocks of two images (ITK CheckerBoardImageFilter);
+    `pattern` counts blocks along x, y, z."""
+    d, h, w = a.data.shape
+    dev = a.data.device
+    pz, py, px = pattern[2], pattern[1], pattern[0]
+    zi = (torch.arange(d, device=dev) * pz // max(d, 1)) % 2
+    yi = (torch.arange(h, device=dev) * py // max(h, 1)) % 2
+    xi = (torch.arange(w, device=dev) * px // max(w, 1)) % 2
+    mask = (zi[:, None, None] + yi[None, :, None] + xi[None, None, :]) % 2
+    return a.with_data(torch.where(mask == 0, a.data, b.data.to(a.data.dtype)))

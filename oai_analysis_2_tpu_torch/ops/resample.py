@@ -127,6 +127,12 @@ def _trilinear_gather(
     return torch.where(inside, out, outside_value)
 
 
+def sample_at_physical_points(image: Image, points_xyz: torch.Tensor, outside_value: float = 0.0) -> torch.Tensor:
+    """Trilinearly sample an Image at physical points (..., 3) xyz."""
+    idx_zyx = image.physical_to_indices(points_xyz).flip(-1)
+    return _trilinear_gather(image.data, idx_zyx, outside_value)
+
+
 def sample_displacement(disp: DisplacementField, points_xyz: torch.Tensor) -> torch.Tensor:
     """Interpolate the displacement field at physical points; zero outside."""
     idx_zyx = disp.as_image_grid().physical_to_indices(points_xyz).flip(-1)
@@ -206,6 +212,11 @@ def resample_image(
     warped = _warp_stacked(moving.data[..., None], moving, reference, displacement, outside_value)
     return Image(data=warped[..., 0].to(moving.dtype), origin=reference.origin,
                  spacing=reference.spacing, direction=reference.direction)
+
+
+def resample_with_displacement(moving: Image, displacement: DisplacementField, reference: Image) -> Image:
+    """`resample_image` in the reference's deform_probmap argument order."""
+    return resample_image(moving, reference, displacement)
 
 
 def resample_images(

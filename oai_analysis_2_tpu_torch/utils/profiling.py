@@ -1,4 +1,5 @@
-"""Per-stage wall timers (port of `StageTimer`, `oai_analysis_2_tpu/utils/profiling.py:18-48`).
+"""Per-stage wall timers and a profiler trace (port of `StageTimer` and
+`trace`, `oai_analysis_2_tpu/utils/profiling.py:18-67`).
 
 Where the JAX package blocks on device results at a stage end, this timer
 synchronizes the card, so a stage's seconds cover its device work and not
@@ -8,9 +9,11 @@ only the enqueue.
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import defaultdict
-from typing import Dict
+from pathlib import Path
+from typing import Dict, Optional
 
 import torch
 
@@ -40,3 +43,25 @@ class StageTimer:
             name: {"seconds": round(t, 4), "calls": self.counts[name]}
             for name, t in sorted(self.totals.items())
         }
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str] = None):
+    """Trace a code region with torch.profiler (host, and the card when one
+    is present) and write it to `log_dir` as a Chrome trace JSON; with no
+    `log_dir`, do nothing."""
+    if log_dir is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    out = Path(log_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(out / f"trace_{os.getpid()}_{time.time_ns()}.json"))

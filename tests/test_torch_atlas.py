@@ -206,7 +206,39 @@ def test_get_mesh_matches():
 
 
 def test_nifti_atlas_dir_raises(tmp_path):
-    for name in ("atlas_fc.nii.gz", "atlas_tc.nii.gz"):
-        (tmp_path / name).write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="NIfTI"):
-        TA.AtlasThicknessMapper.from_segmenter(None, None, atlas_dir=tmp_path)
+    """(Named when the port refused the release's atlas maps.) With
+    atlas_fc/tc.nii.gz in `atlas_dir` the mapper reads them and never calls
+    the segmenter; its atlas meshes and 2D embedding equal the JAX mapper's
+    from the same files (embedding within 1e-4). With only one of the two
+    files, it segments the atlas image."""
+    from oai_analysis_2_tpu.core.nifti import write_nifti as jwrite
+    from oai_analysis_2_tpu_torch.core.nifti import write_nifti
+
+    class Spy:
+        calls = 0
+
+        def segment(self, image, if_output_prob_map=True):
+            Spy.calls += 1
+            return image, image
+
+    n = 24
+    z, y, x = np.meshgrid(*[np.arange(n, dtype=np.float32)] * 3, indexing="ij")
+    rr = np.sqrt((z - 12) ** 2 + (y - 12) ** 2 + (x - 12) ** 2)
+    fc = (np.clip(1.0 - np.abs(rr - 9.0) / 1.5, 0.0, 1.0) * (y < 10)).astype(np.float32)
+    tc = (np.clip(1.0 - np.abs(rr - 6.0) / 1.5, 0.0, 1.0) * (y > 14)).astype(np.float32)
+    spacing = (0.5, 0.5, 0.7)
+    write_nifti(timage(fc, spacing=spacing, device="cpu"), tmp_path / "atlas_fc.nii.gz")
+    jwrite(jimage(jnp.asarray(tc), spacing=spacing), tmp_path / "atlas_tc.nii.gz")
+    atlas = timage(np.zeros((n, n, n), np.float32), spacing=spacing, device="cpu")
+    got = TA.AtlasThicknessMapper.from_segmenter(Spy(), atlas, atlas_dir=tmp_path, filter_threshold=100)
+    want = JA.AtlasThicknessMapper.from_segmenter(None, jimage(jnp.zeros((n, n, n)), spacing=spacing),
+                                                  atlas_dir=tmp_path, filter_threshold=100)
+    assert Spy.calls == 0
+    for name in ("FC", "TC"):
+        g, w = got._emb[name], want._emb[name]
+        assert len(g[0]) == len(w[0]) > 100, name
+        np.testing.assert_allclose(g[0], w[0], atol=1e-4)
+        np.testing.assert_allclose(g[1], w[1], atol=1e-4)
+    (tmp_path / "atlas_tc.nii.gz").unlink()
+    segmented = TA.AtlasThicknessMapper.from_segmenter(Spy(), atlas, atlas_dir=tmp_path, filter_threshold=100)
+    assert Spy.calls == 1 and segmented.fc_atlas_inner.n_points == 0  # the spy's maps are the empty atlas
