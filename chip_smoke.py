@@ -73,7 +73,22 @@ Phases, each fatal on failure (exit code 1, no result line):
    within 0.005 and mean mapped thickness within 1 % of phase 6 (a); (d)
    the segment stage of the knee with an identity batch-norm variant of
    the checkpoint (the BN route), within 1e-3 of the fused route's maps,
-   and each route's segment once under torch.profiler.
+   and each route's segment once under torch.profiler;
+9. cohort from disk: (a) phase 8's knee written as a zarr store (zlib
+   chunks) under the git-ignored `build/cohort_smoke/` and read by
+   `engine.stages.readimage` from the directory and over a loopback
+   `http.server` thread: voxels and metadata exactly the NIfTI read's;
+   (b) a directory of three copies of the knee through the CLI's `cohort`
+   command in this process (the next knee decoded on the prefetch thread):
+   3 done, no failed or retried record, launches exactly 3 x phase 8
+   (b)'s, each knee's VTK files within phase 8's tolerances of phase 8
+   (b)'s; per-knee decode, copy, stage and write seconds, the runner's wall
+   time, items_per_hour and a lower bound on the read time the prefetch
+   hid; then the same command again, which must run nothing; (c) `python
+   -m oai_analysis_2_tpu_torch bench` and `prewarm --shape 48,96,96` in
+   subprocesses: the bench's JSON line (FC median 0.2-10 mm, a positive
+   fresh-process warm-up) and prewarm's report (every kernel library
+   present after it, a first knee that took time).
 
 Before the last line it prints one JSON object `{"kernels": [...]}` (per
 kernel and conv route: launches on the reported run, max error against the
@@ -86,6 +101,7 @@ exits with code 1 and prints no result. It imports nothing of JAX.
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -131,14 +147,6 @@ CONV_SOURCES = {"sm90": "oai_analysis_2_tpu_torch/csrc/conv3d_sm90.cu",
 
 def log(*args):
     print(*args, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def time_ms(torch, fn, reps: int) -> float:
@@ -378,38 +386,9 @@ def distance_case(torch, cuda_kernels, reps):
     }
 
 
-def shell_probmap(shape_zyx, r_inner=47.5, r_outer=52.5, center=None):
-    """A curved cartilage-like shell (probability ~1 between two radii,
-    limited to a polar cap) on the atlas grid (the bench fixture's,
-    bench.py:70-84)."""
-    d, h, w = shape_zyx
-    c = center or (d * 0.5, h * 0.55, w * 0.5)
-    z, y, x = np.meshgrid(
-        np.arange(d, dtype=np.float32),
-        np.arange(h, dtype=np.float32),
-        np.arange(w, dtype=np.float32),
-        indexing="ij",
-    )
-    rr = np.sqrt(((z - c[0]) * 2.4) ** 2 + (y - c[1]) ** 2 + (x - c[2]) ** 2)
-    shell = np.clip(1.0 - np.abs(rr - (r_inner + r_outer) / 2) / ((r_outer - r_inner) / 2), 0, 1)
-    cap = (y < c[1]).astype(np.float32)  # upper cap only
-    return (shell * cap).astype(np.float32)
-
-
-def knee_and_atlas(shape, fc, tc, atlas_fc, atlas_tc, seed=0):
-    """The bench fixture (bench.py:128-153): a DESS-like knee carrying two
-    shells, and an atlas with the same anatomy slightly shifted and matched
-    background texture. fc/tc/atlas_*: (r_inner, r_outer, center or None)."""
-    rng = np.random.default_rng(seed)
-    anatomy = np.maximum(shell_probmap(shape, *fc), shell_probmap(shape, *tc))
-    knee = (anatomy * 900.0 + rng.uniform(0.0, 250.0, shape)).astype(np.float32)
-    atlas_anatomy = np.maximum(shell_probmap(shape, *atlas_fc), shell_probmap(shape, *atlas_tc))
-    atlas = (atlas_anatomy * 0.78 + rng.uniform(0.0, 0.22, shape)).astype(np.float32)
-    return knee, atlas
-
-
-FULL = dict(shape=(160, 384, 384), fc=(47.5, 52.5, None), tc=(31.5, 35.5, (80, 230, 192)),
-            atlas_fc=(47.5, 52.5, (80, 206, 184)), atlas_tc=(31.5, 35.5, (80, 222, 184)))
+# the bench fixture (shell_probmap / knee_and_atlas / FULL) lives in the
+# port's bench module, `oai_analysis_2_tpu_torch/bench.py`; SMALL is a
+# 48x96x96 knee of it
 SMALL = dict(shape=(48, 96, 96), fc=(27.5, 31.5, (24, 53, 48)), tc=(15.5, 19.5, (24, 60, 48)),
              atlas_fc=(27.5, 31.5, (24, 51, 46)), atlas_tc=(15.5, 19.5, (24, 57, 46)))
 
@@ -429,6 +408,7 @@ ACCURATE = {"a": dict(registration_mode="network", finetune_steps=20),
 
 def build_pipeline(device, fixture, batch_size):
     from oai_analysis_2_tpu_torch.analysis_object import AnalysisObject
+    from oai_analysis_2_tpu_torch.bench import knee_and_atlas
     from oai_analysis_2_tpu_torch.core.image import image_from_array
     from oai_analysis_2_tpu_torch.engine.pipeline import KneePipeline
 
@@ -543,6 +523,7 @@ def instance_small_check(torch) -> dict:
     """`register_pair_instance` on the small knee (scaled to [0, 1]) and its
     atlas, both 2x average-pooled to 24x48x48, on the card and on the CPU,
     in both gradient modes; the CPU evaluates both results."""
+    from oai_analysis_2_tpu_torch.bench import knee_and_atlas
     from oai_analysis_2_tpu_torch.models import gradicon as TG
 
     knee, atlas = knee_and_atlas(**SMALL)
@@ -851,6 +832,193 @@ def release_layout(torch, cuda_conv, cuda_kernels, base, knee, ref) -> dict:
                                       for name, seg in (("bn", seg_bn), ("fused", obj.segmenter))}}
     return out
 
+def run_child(cmd, timeout) -> str:
+    """Run `cmd` from the checkout's root in its own session and return its
+    standard output; on a time-out the whole session is killed, so no
+    process it started outlives this call. Raises if it fails."""
+    import signal
+
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)), start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"{' '.join(cmd[1:])} did not finish in {timeout} s") from None
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd[1:])} exited {proc.returncode}:\n{err[-6000:]}")
+    return out
+
+
+def last_json(out: str, key: str) -> dict:
+    """The last line of `out` that is a JSON object holding `key`."""
+    for line in reversed(out.strip().splitlines()):
+        try:
+            obj = json.loads(line)
+        except ValueError:
+            continue
+        if isinstance(obj, dict) and key in obj:
+            return obj
+    raise AssertionError(f"no JSON line with {key!r} in:\n{out[-3000:]}")
+
+
+def shard_records(manifest) -> list:
+    return [json.loads(line) for shard in sorted(manifest.parent.glob(manifest.name + ".h*.jsonl"))
+            for line in shard.read_text().splitlines() if line.strip()]
+
+
+def cohort_from_disk(torch, cuda_conv, cuda_kernels, cli_ref) -> dict:
+    """Phase 9: phase 8's knee as a zarr store (read from the directory and
+    over a loopback HTTP server), a directory of three copies of it through
+    the CLI's `cohort` command, the command once more (resumed: nothing
+    runs), and the `bench` and `prewarm` commands in subprocesses. `cli_ref`
+    is phase 8 (b)'s CLI knee (its meshes read back, its stage seconds)."""
+    import http.server
+    import shutil
+    import threading
+    from functools import partial
+    from pathlib import Path
+
+    from oai_analysis_2_tpu_torch import __main__ as cli
+    from oai_analysis_2_tpu_torch.core.nifti import read_nifti
+    from oai_analysis_2_tpu_torch.engine.stages import readimage
+    from oai_analysis_2_tpu_torch.mesh.types import Mesh
+    from oai_analysis_2_tpu_torch.parallel.cohort import CohortManifest
+    from oai_analysis_2_tpu_torch.utils.zarr_io import write_zarr_volume
+
+    here = Path(__file__).resolve().parent
+    knee_path = here / "build" / "release_smoke" / "knee.nii.gz"
+    root = here / "build" / "cohort_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    out = {}
+
+    # (a) the knee as a zarr store (zlib chunks), read from the directory
+    # and over HTTP: exactly the NIfTI read's voxels and metadata
+    nii = read_nifti(knee_path, device="cuda")
+    t0 = time.perf_counter()
+    write_zarr_volume(nii, root / "knee.zarr")
+    out["zarr"] = {"write_s": time.perf_counter() - t0,
+                   "store_mb": sum(f.stat().st_size for f in (root / "knee.zarr").rglob("*") if f.is_file()) / 1e6}
+
+    class Quiet(http.server.SimpleHTTPRequestHandler):
+        def log_message(self, *args):
+            pass
+
+    httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0), partial(Quiet, directory=str(root)))
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    try:
+        for name, src in (("directory", root / "knee.zarr"),
+                          ("http", f"http://127.0.0.1:{httpd.server_address[1]}/knee.zarr")):
+            t0 = time.perf_counter()
+            img = readimage(src, device="cuda")
+            torch.cuda.synchronize()
+            out["zarr"][f"{name}_read_s"] = time.perf_counter() - t0
+            for k in ("data", "origin", "spacing", "direction"):
+                a, b = getattr(img, k), getattr(nii, k)
+                if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+                    raise AssertionError(f"zarr read ({name}): {k} differs from the NIfTI read")
+            del img
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.join(timeout=30)
+    del nii
+
+    # (b) three copies of the knee through the CLI's cohort command
+    knees = root / "knees"
+    knees.mkdir()
+    for i in range(3):
+        shutil.copyfile(knee_path, knees / f"knee{i}.nii.gz")
+    out_dir = root / "out"
+    manifest = out_dir / "manifest.json"
+    reset_launches(cuda_conv, cuda_kernels)
+    t0 = time.perf_counter()
+    summary = cli.main(["cohort", str(knees), "-o", str(out_dir)])
+    torch.cuda.synchronize()
+    command_s = time.perf_counter() - t0
+    launches = read_launches(cuda_conv, cuda_kernels)
+    want = {k: 3 * v for k, v in CLI_LAUNCHES.items()}
+    records = shard_records(manifest)
+    bad = [r for r in records if r["status"] in ("failed", "retry")]
+    if summary != {"done": 3} or bad:
+        raise AssertionError(f"cohort summary {summary}; failed or retried records: {bad}")
+    if launches != want:
+        raise AssertionError(f"cohort launches {launches}, want {want}")
+    items = CohortManifest.open(manifest, host=0).items
+    run_summary = json.loads((out_dir / "manifest.json.summary.json").read_text())
+    per_knee, accounted = {}, 0.0
+    for i in range(3):
+        rec = items[f"knee{i}.nii.gz"]
+        meta = rec["result"]
+        stages = {k: v["seconds"] for k, v in meta["timings"].items()}
+        meshes = {}
+        for tissue in ("FC", "TC"):
+            for side in ("inner", "outer"):
+                key = f"{tissue.lower()}_{side}"
+                mesh = Mesh.load_vtk(out_dir / f"knee{i}_{tissue}_{side}.vtk")
+                n, n_ref = mesh.n_points, cli_ref["meshes"][key]["points"]
+                if mesh.point_data is None or not np.isfinite(mesh.point_data).all():
+                    raise AssertionError(f"cohort knee{i} {key}: thickness missing or non-finite")
+                mean, mean_ref = float(mesh.point_data.mean()), cli_ref["meshes"][key]["thickness_mean_mm"]
+                if abs(n - n_ref) > 0.005 * n_ref or abs(mean - mean_ref) > 0.01 * abs(mean_ref):
+                    raise AssertionError(f"cohort knee{i} {key}: {n} points, mean {mean} mm; phase 8 (b) had "
+                                         f"{n_ref}, {mean_ref} mm")
+                meshes[key] = {"points": n, "thickness_mean_mm": mean}
+        per_knee[f"knee{i}"] = {"seconds": rec["seconds"], "decode_seconds": meta["decode_seconds"],
+                                "read_seconds": meta["read_seconds"], "stage_seconds": stages,
+                                "write_seconds": meta["write_seconds"], "meshes": meshes}
+        accounted += meta["decode_seconds"] + meta["read_seconds"] + sum(stages.values()) + meta["write_seconds"]
+    wall = run_summary["wall_seconds"]
+    out["cohort"] = {
+        "command_s": command_s, "runner_wall_s": wall, "items_per_hour": run_summary["items_per_hour"],
+        "mean_item_seconds": run_summary["mean_item_seconds"], "launches": launches, "knees": per_knee,
+        # a lower bound on the read time the prefetch hid: each knee's decode
+        # (on the prefetch thread), copy to the card, stages and writes,
+        # summed, less the runner's wall time, which also holds the claim
+        # probes, the manifest appends and the summary
+        "accounted_s": accounted, "hidden_read_s": accounted - wall,
+        "phase8_cli_stage_seconds": cli_ref["stage_seconds"],
+    }
+
+    # the same command again: every knee is done, nothing runs
+    reset_launches(cuda_conv, cuda_kernels)
+    t0 = time.perf_counter()
+    again = cli.main(["cohort", str(knees), "-o", str(out_dir)])
+    torch.cuda.synchronize()
+    resumed = read_launches(cuda_conv, cuda_kernels)
+    if again != {"done": 3} or any(resumed.values()) or len(shard_records(manifest)) != len(records):
+        raise AssertionError(f"the resumed cohort ran again: summary {again}, launches {resumed}")
+    out["cohort"]["resumed_command_s"] = time.perf_counter() - t0
+
+    # (c) the bench and prewarm commands, each in a fresh process (bench's
+    # fresh-process probe is what prewarm pays for)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    bench = last_json(run_child([sys.executable, "-m", "oai_analysis_2_tpu_torch", "bench"], 900), "metric")
+    out["bench_command_s"] = time.perf_counter() - t0
+    fc_med = bench.get("fc_thickness_median_mm")
+    fresh = bench.get("warmup_seconds_fresh_process")
+    if not (bench.get("value") or 0) > 0 or fc_med is None or not 0.2 < fc_med < 10.0:
+        raise AssertionError(f"bench line implausible: {bench}")
+    if not isinstance(fresh, (int, float)) or not math.isfinite(fresh) or fresh <= 0:
+        raise AssertionError(f"bench's fresh-process probe gave no time: {fresh!r}")
+    out["bench"] = bench
+    t0 = time.perf_counter()
+    report = last_json(run_child([sys.executable, "-m", "oai_analysis_2_tpu_torch", "prewarm",
+                                  "--shape", "48,96,96"], 600), "prewarm_seconds")
+    out["prewarm_command_s"] = time.perf_counter() - t0
+    from oai_analysis_2_tpu_torch.ops import cuda_build
+
+    if report.get("compile_cache_entries_after") != len(cuda_build.EXTRA_FLAGS) or \
+            not (report.get("first_knee_seconds") or 0) > 0:
+        raise AssertionError(f"prewarm report: want {len(cuda_build.EXTRA_FLAGS)} kernel libraries after "
+                             f"and a first knee that took time, got {report}")
+    out["prewarm"] = report
+    return out
+
 
 def profile_segment(torch, segmenter, pre) -> dict:
     """One segment call under torch.profiler: wall, device busy time and
@@ -933,6 +1101,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch.nn.functional as F
 
+    from oai_analysis_2_tpu_torch.bench import FULL, card_line
     from oai_analysis_2_tpu_torch.ops import cuda_build, cuda_conv, cuda_kernels
 
     torch.backends.cudnn.allow_tf32 = False
@@ -1081,6 +1250,14 @@ def main() -> int:
         if k["name"].endswith(":bn"):  # the BN route's own path
             k["launches"] = release["bn_segment"]["launches"][fam]
     log(f"phase release layout ({release['phase_s']:.1f} s, card {card}): {json.dumps(release)}")
+
+    # ---- 9. a cohort from disk: zarr, the cohort command, bench, prewarm --------
+    t0 = time.perf_counter()
+    cohort = cohort_from_disk(torch, cuda_conv, cuda_kernels, release["cli"])
+    cohort["phase_s"] = time.perf_counter() - t0
+    for k in kernels:
+        k["launches_by_path"]["cohort_3_knees"] = cohort["cohort"]["launches"][k["name"].split(":")[0]]
+    log(f"phase cohort from disk ({cohort['phase_s']:.1f} s, card {card}): {json.dumps(cohort)}")
 
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -140,14 +140,16 @@ class KneePipeline:
         )
 
     def run_path(self, nifti_path, output_dir: Optional[Path] = None, image: Optional[Image] = None) -> dict:
-        """Read a NIfTI knee (unless `image` is given), run it, and write
+        """Read a NIfTI knee (unless `image` is given: a cohort decodes the
+        next knee on the host ahead of time), run it, and write
         `<stem>_{FC,TC}_{inner,outer}.vtk` and, with atlas products,
         `<stem>_thickness_2d.npz` into `output_dir`. Returns the JSON-ready
         metadata of the JAX package's `run_path` (`engine/pipeline.py:184-220`)
         plus `read_seconds` and `write_seconds`, the host time of the read
-        and of the writes."""
+        (of a given image, its copy to the pipeline's device) and of the
+        writes."""
         t0 = time.perf_counter()
-        image = read_nifti(nifti_path, device=self.device) if image is None else image
+        image = read_nifti(nifti_path, device=self.device) if image is None else image.to(self.device)
         read_seconds = time.perf_counter() - t0
         result = self.run(image)
         meta = {

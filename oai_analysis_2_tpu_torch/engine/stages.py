@@ -2,9 +2,8 @@
 
 Each function mirrors one task of the reference's Dask layer
 (`dask_processing.py`) as a plain function. Entry points that create data
-take `device` (None: the card). `readimage` reads NIfTI; zarr stores and
-remote URLs raise until the zarr reader is ported (ROADMAP.md, Queue 1
-item 3).
+take `device` (None: the card). `readimage` reads zarr stores (a local
+directory, `http(s)://` or `s3://`) and NIfTI files.
 """
 
 from __future__ import annotations
@@ -20,6 +19,8 @@ from oai_analysis_2_tpu_torch.mesh.processing import get_thickness_mesh
 from oai_analysis_2_tpu_torch.models.gradicon import GradICONConfig
 from oai_analysis_2_tpu_torch.ops.intensity import percentile_window
 from oai_analysis_2_tpu_torch.ops.resample import DisplacementField, resample_image
+from oai_analysis_2_tpu_torch.utils.stores import is_remote
+from oai_analysis_2_tpu_torch.utils.zarr_io import read_zarr_volume
 
 
 def image_normalize(
@@ -34,14 +35,14 @@ def image_normalize(
 
 
 def readimage(image_path, device=None) -> Image:
-    """Load a NIfTI volume onto `device`."""
-    remote = isinstance(image_path, str) and image_path.startswith(("s3://", "http://", "https://"))
+    """Load a volume onto `device` from a zarr store (a local directory, an
+    `http(s)://` or an `s3://` URL) or a NIfTI file (the JAX package's
+    dispatch, `oai_analysis_2_tpu/engine/stages.py:35-51`)."""
+    if is_remote(image_path):
+        return read_zarr_volume(image_path, device=device)
     p = Path(image_path)
-    if remote or p.suffix == ".zarr" or (p / ".zarray").exists() or (p / "image" / ".zarray").exists():
-        raise NotImplementedError(
-            f"reading zarr stores and remote URLs ({image_path}) is not ported yet "
-            "(ROADMAP.md, Queue 1 item 3); pass a NIfTI file"
-        )
+    if p.suffix == ".zarr" or (p / ".zarray").exists() or (p / "image" / ".zarray").exists():
+        return read_zarr_volume(p, device=device)
     return read_nifti(p, device=device)
 
 

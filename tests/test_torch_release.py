@@ -1,6 +1,6 @@
 """The PyTorch port on the release layout against the JAX package: the data
 directory, `AnalysisObject()` from disk, the atlas probability maps,
-`KneePipeline.run_path`, `engine.stages` and both CLI commands.
+`KneePipeline.run_path`, `engine.stages` and the CLI commands.
 
 A release-shaped tree is written under `tmp_path` and `OAI_TPU_DATA_DIR`
 points at it: `models/` holds a `UNet_light4` with threshold weights as the
@@ -16,6 +16,7 @@ keeps the network on the CPU to seconds.
 
 import json
 import time
+import types
 import urllib.request
 import warnings
 
@@ -32,10 +33,12 @@ from oai_analysis_2_tpu.engine.pipeline import KneePipeline as JPipeline
 from oai_analysis_2_tpu.models import gradicon as JG
 from oai_analysis_2_tpu.utils import data as JData
 from oai_analysis_2_tpu_torch import __main__ as TMain
+from oai_analysis_2_tpu_torch import bench as TBench
 from oai_analysis_2_tpu_torch.analysis_object import AnalysisObject as TAnalysis
 from oai_analysis_2_tpu_torch.core.image import image_from_array as timage
 from oai_analysis_2_tpu_torch.core.nifti import read_nifti as tread
 from oai_analysis_2_tpu_torch.core.nifti import write_nifti as twrite
+from oai_analysis_2_tpu_torch.engine import prewarm as TPrewarm
 from oai_analysis_2_tpu_torch.engine import registration as TReg
 from oai_analysis_2_tpu_torch.engine import stages as TStages
 from oai_analysis_2_tpu_torch.engine.atlas_products import AtlasThicknessMapper as TMapper
@@ -44,7 +47,9 @@ from oai_analysis_2_tpu_torch.mesh.types import Mesh
 from oai_analysis_2_tpu_torch.models import gradicon as TG
 from oai_analysis_2_tpu_torch.models.unet3d import NETWORK_SPECS, make_threshold_params
 from oai_analysis_2_tpu_torch.ops.resample import DisplacementField
+from oai_analysis_2_tpu_torch.parallel import cohort as TCohort
 from oai_analysis_2_tpu_torch.utils import data as TData
+from oai_analysis_2_tpu_torch.utils import zarr_io as TZarr
 from oai_analysis_2_tpu_torch.utils.checkpoint import flatten_tree, load_checkpoint, save_checkpoint
 
 torch.set_num_threads(2)
@@ -283,7 +288,7 @@ def test_run_path_meshes_read_back(run_paths):
             assert abs(float(got.point_data.mean()) - float(want.point_data.mean())) <= 1e-3
 
 
-def test_stages_match(env):
+def test_stages_match(env, tmp_path):
     """image_normalize, readimage, deform_probmap and get_thickness against
     the JAX stages on the same files. register_images (instance
     optimization, one step a scale on the 16x32x32 grid, lr 1.2 voxels a
@@ -296,8 +301,12 @@ def test_stages_match(env):
     np.testing.assert_array_equal(t_img.data.numpy(), np.asarray(j_img.data))
     np.testing.assert_allclose(TStages.image_normalize(t_img).data.numpy(),
                                np.asarray(JStages.image_normalize(j_img).data), atol=1e-6)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        TStages.readimage("s3://bucket/knee.zarr")
+    # the same knee as a zarr store: both packages' readimage dispatch to
+    # their zarr readers and read the NIfTI's voxels and metadata
+    TZarr.write_zarr_volume(t_img, tmp_path / "knee.zarr")
+    for img in (TStages.readimage(tmp_path / "knee.zarr", device="cpu"), JStages.readimage(tmp_path / "knee.zarr")):
+        for k in ("data", "origin", "spacing", "direction"):
+            np.testing.assert_array_equal(np.asarray(getattr(img, k)), getattr(t_img, k).numpy())
 
     atlas = atlas_dir / "atlas_image.nii.gz"
     tphi, _, _ = TStages.register_images(knee, atlas, config=TG.GradICONConfig(grid_shape=GRID),
@@ -340,10 +349,11 @@ def test_segment_method_and_cli_segment_match(env, tmp_path):
         np.testing.assert_allclose(got.spacing.numpy(), np.asarray(want.spacing), atol=1e-6)
 
 
-def test_cli_pipeline(env, tmp_path):
+def test_cli_pipeline(env, tmp_path, monkeypatch):
     """`main(["pipeline", ...])` on a 48x96x96 knee: network registration
     without fine-tuning; the four meshes and the metadata are written. The
-    unported commands are not offered."""
+    `cohort`, `bench` and `prewarm` commands dispatch to their handlers
+    (tests/test_torch_cohort.py runs `cohort`)."""
     out = tmp_path / "out"
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
@@ -354,9 +364,18 @@ def test_cli_pipeline(env, tmp_path):
             "write_seconds"} == set(meta)
     assert meta["fc_points"] > 0 and meta["tc_points"] > 0
     assert Mesh.load_vtk(out / "knee48_FC_inner.vtk").n_points == meta["fc_points"]
-    for cmd in ("cohort", "bench", "prewarm"):
-        with pytest.raises(SystemExit):
-            TMain.main([cmd, str(tmp_path)])
+    seen = {}
+    monkeypatch.setattr(TCohort, "CohortRunner", lambda pipeline, **kw: types.SimpleNamespace(
+        run=lambda items, keys: seen.setdefault("cohort", (list(keys), kw["manifest_path"]))))
+    monkeypatch.setattr(TBench, "main", lambda: seen.setdefault("bench", True))
+    monkeypatch.setattr(TPrewarm, "main", lambda argv: seen.setdefault("prewarm", argv))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        TMain.main(["cohort", str(env), "-o", str(tmp_path / "cohort"), "--device", "cpu"])
+    TMain.main(["bench"])
+    TMain.main(["prewarm", "--shape", "8,16,16"])
+    assert seen == {"cohort": (["knee.nii.gz", "knee48.nii.gz"], tmp_path / "cohort" / "manifest.json"),
+                    "bench": True, "prewarm": ["--shape", "8,16,16"]}
 
 
 def test_cli_needs_a_card_by_default(env, tmp_path, monkeypatch):
