@@ -18,7 +18,10 @@ Phases, each fatal on failure (exit code 1, no result line):
    grid sizes). A bf16 conv is checked with f32 output and with the bf16
    output the main path takes (each its own build of the kernel); enc0b
    (sm90) and enc0a (cin1) are checked once more on the batch-norm UNet's
-   route, without ReLU and with f32 output (rows named `...:bn`). At each
+   route, without ReLU and with f32 output (rows named `...:bn`), and
+   enc0b, dec2a, enc1b, enc3b (sm90) and enc0a (cin1) once more at the
+   knee batch's shapes (rows named `...:b16`: 16 tiles of 32x128x128 a
+   step, the training tiling that two knees take). At each unbatched
    sm90 and cin1 shape it also times the wmma build (which ran those convs
    before) and the sm90 kernel's loads-only or the cin1 kernel's
    stores-only and general-path builds; at each f32 shape and at the
@@ -88,14 +91,40 @@ Phases, each fatal on failure (exit code 1, no result line):
    -m oai_analysis_2_tpu_torch bench` and `prewarm --shape 48,96,96` in
    subprocesses: the bench's JSON line (FC median 0.2-10 mm, a positive
    fresh-process warm-up) and prewarm's report (every kernel library
-   present after it, a first knee that took time).
+   present after it, a first knee that took time), and every batched key
+   of the bench line present and finite;
+10. knee batch: (a) two distinct full-size knees (the fixture knee and one
+   with shifted shells and another noise seed) through the segmenter at
+   the training tiling, as a pair, alone and swapped: each knee's maps
+   from the pair within 1e-3 of its maps alone (the two passes share
+   tiles and differ in the conv batch alone), the swapped pair's outputs
+   swapped; (b) `BatchKneePipeline.run_batch` on the two knees (network +
+   20 fine-tuning steps, bf16 warp, segmenter batch 8), twice: the second
+   run's launches exactly 2 x 130 sm90 + 2 x 10 cin1 (20 steps of 16
+   tiles), 2 x 60 f32 conv and 8 distance, each knee's four meshes within
+   phase 8's tolerances of the same knee through `KneePipeline.run`,
+   device batch, thickness and per-knee seconds and peak memory; (c)
+   `run_batches` over the pair twice: each batch's maps and meshes as
+   (b)'s, and the overlap gain; (d) `CohortRunner` with the batch
+   pipeline (a wrapper of `run_batch`, batch_size 2) over four knees (the
+   two, twice): 4 done, no failed or retried record, the batch pipeline
+   called twice and the single-item pipeline never, launches 2 x (b)'s;
+   (e) marching tetrahedra on (b)'s first knee's warped maps: the
+   iso-surfaces on the card and on the CPU with equal counts and faces and
+   vertices within 1e-5 mm, the components, smoothing and split on both
+   with equal counts and faces and vertices within 1e-5 mm, and
+   `get_thickness_meshes(method="tets")` on the card with an FC median of
+   0.2-10 mm and its thickness within 1e-3 mm of the CPU's plain distance
+   at every 100th vertex of each surface (all of them would take minutes
+   on the host).
 
 Before the last line it prints one JSON object `{"kernels": [...]}` (per
 kernel and conv route: launches on the reported run, max error against the
 plain version, kernel / plain / library milliseconds and the bound; sm90,
 cin1, f32 and distance rows add the replaced build's milliseconds, sm90
 rows the loads-only build's, the cin1 row the stores-only build's; the
-`:bn` rows count the launches of phase 8 (d)), then the card line.
+`:bn` rows count the launches of phase 8 (d), the `:b16` rows those of
+phase 10 (b)), then the card line.
 The last line is `{"ok": true, "device": {...}}`. Without a CUDA card it
 exits with code 1 and prints no result. It imports nothing of JAX.
 """
@@ -106,6 +135,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -135,6 +165,13 @@ SEG_CONVS = [
     ("enc0b", SLAB, 32, 64), ("dec2a", SLAB, 192, 64), ("dec2b", SLAB, 64, 64),
     ("enc1b", (1, 24, 208, 208), 128, 128), ("dec0a", (1, 12, 104, 104), 768, 256),
     ("enc3b", (1, 6, 52, 52), 512, 512), ("enc0a", SLAB, 1, 32),
+]
+TILE = (16, 32, 128, 128)  # one step of the knee batch: 8 tiles x 2 knees
+# segment-UNet convs at the knee batch's tiles: the two widest
+# full-resolution ones, two lower levels, enc0a
+BATCH_CONVS = [
+    ("enc0b:b16", TILE, 32, 64), ("dec2a:b16", TILE, 192, 64), ("enc1b:b16", (16, 16, 64, 64), 128, 128),
+    ("enc3b:b16", (16, 4, 16, 16), 512, 512), ("enc0a:b16", TILE, 1, 32),
 ]
 REG_GRID = (48, 96, 96)  # the registration grid; the finest stage (scale 1) runs on it
 REG_WIDTH = 24  # the shipped GradICON's stage width (oai_analysis_2_tpu/weights/gradicon.npz)
@@ -248,9 +285,10 @@ def gradicon_convs(width=REG_WIDTH, grid=REG_GRID):
     return convs
 
 
-def conv_case(torch, F, cuda_conv, name, shape, cin, cout, dtype, tol, reps, clock=False, bn=False):
+def conv_case(torch, F, cuda_conv, name, shape, cin, cout, dtype, tol, reps, clock=False, bn=False, others=True):
     """One conv shape: kernel vs plain version, times and bound. `bn`: the
-    batch-norm UNet's route (no ReLU, f32 output: BN runs after the conv)."""
+    batch-norm UNet's route (no ReLU, f32 output: BN runs after the conv).
+    `others`: also time the other builds at this shape."""
     route = cuda_conv.conv3d_route(cin, cout, dtype)
     relu = not bn
     out_dtype = torch.float32 if bn else dtype  # the output type the path takes
@@ -300,7 +338,7 @@ def conv_case(torch, F, cuda_conv, name, shape, cin, cout, dtype, tol, reps, clo
         if clock:
             extra.update(clock_under_load(torch, lambda: cuda_conv.conv3d(x, k, b, relu=True, out_dtype=dtype),
                                           int(1500 / ms) + 1))
-    if route == "sm90" and not bn:
+    if route == "sm90" and not bn and others:
         # uncounted launches of other builds at the same shape: the wmma
         # kernel, which ran every bf16 conv before the sm90 route, and the
         # sm90 kernel's load pipeline alone (no wgmma, no stores)
@@ -310,7 +348,7 @@ def conv_case(torch, F, cuda_conv, name, shape, cin, cout, dtype, tol, reps, clo
             "loads_ms": time_ms(torch, lambda: cuda_conv.launch(x, k, b, route="sm90", relu=True,
                                                                  out_dtype=dtype, loads_only=True), reps),
         }
-    if route == "cin1" and not bn:
+    if route == "cin1" and not bn and others:
         # uncounted launches at enc0a's shape: the wmma build of
         # csrc/conv3d.cu, which ran enc0a before the cin1 route, the cin1
         # kernel's store path alone (bias + ReLU of zero staged and copied
@@ -1005,6 +1043,10 @@ def cohort_from_disk(torch, cuda_conv, cuda_kernels, cli_ref) -> dict:
         raise AssertionError(f"bench line implausible: {bench}")
     if not isinstance(fresh, (int, float)) or not math.isfinite(fresh) or fresh <= 0:
         raise AssertionError(f"bench's fresh-process probe gave no time: {fresh!r}")
+    bad = [k for k in BENCH_BATCH_KEYS
+           if not isinstance(bench.get(k), (int, float)) or not math.isfinite(bench[k]) or not bench[k] > 0]
+    if bad or any(k.startswith("projected") for k in bench):
+        raise AssertionError(f"bench line: batched keys missing, not finite or not positive: {bad}")
     out["bench"] = bench
     t0 = time.perf_counter()
     report = last_json(run_child([sys.executable, "-m", "oai_analysis_2_tpu_torch", "prewarm",
@@ -1017,6 +1059,239 @@ def cohort_from_disk(torch, cuda_conv, cuda_kernels, cli_ref) -> dict:
         raise AssertionError(f"prewarm report: want {len(cuda_build.EXTRA_FLAGS)} kernel libraries after "
                              f"and a first knee that took time, got {report}")
     out["prewarm"] = report
+    return out
+
+
+# phase 9 (c): the bench line's batched keys
+BENCH_BATCH_KEYS = (
+    "batch2_seconds_per_knee", "batch_efficiency_vs_single", "batch8_seconds_total", "batch8_device_seconds",
+    "batch8_thickness_seconds", "batch8_thickness_smooth_seconds", "batch8_thickness_distance_seconds",
+    "batch8_thickness_mc_seconds", "batch4_seconds_total", "batch4_pipelined_seconds_per_batch",
+    "batch_overlap_gain", "segment_seconds_reference_tiling", "seconds_per_knee_reference_tiling",
+    "batch2_peak_memory_gb", "batch8_peak_memory_gb", "batch4_peak_memory_gb", "reference_tiling_peak_memory_gb",
+)
+# phase 10 (b): the batched path's launches on two knees: 20 steps of 16
+# tiles through the 14 bf16 convs (enc0a on cin1), the network's 60 f32
+# convs a knee, 2 tissues x 2 directions of the distance a knee
+BATCH_LAUNCHES = {"conv3d_sm90": 2 * 130, "conv3d_cin1": 2 * 10, "conv3d_wmma": 0, "conv3d_f32": 2 * 60,
+                  "point_triangle": 8}
+
+
+def check_meshes_close(got: dict, ref: dict, size_tol: float, mean_tol: float, what: str) -> None:
+    """Each mesh's size and mean thickness in `got` (a `summarize` dict)
+    within `size_tol` and `mean_tol` (relative) of `ref`'s."""
+    for key, n_ref in ref["points"].items():
+        n = got["points"][key]
+        mean, mean_ref = got[f"{key}_thickness_mean_mm"], ref[f"{key}_thickness_mean_mm"]
+        if abs(n - n_ref) > size_tol * n_ref or abs(mean - mean_ref) > mean_tol * abs(mean_ref):
+            raise AssertionError(f"{what} {key}: {n} points, mean {mean} mm; want {n_ref}, {mean_ref} mm")
+
+
+def probmap_gap(a, b) -> dict:
+    d = (a.float() - b.float()).abs()
+    return {"max": float(d.max()), "mean": float(d.mean()), "share_over_0.05": float((d > 0.05).float().mean())}
+
+
+def knee_batch(torch, cuda_conv, cuda_kernels, pipe, knee) -> dict:
+    """Phase 10: two distinct full-size knees through the knee-batched path
+    (`parallel/batch.py`), sharing phase 4's segmenter (batch 8) and atlas."""
+    import shutil
+    from pathlib import Path
+
+    from oai_analysis_2_tpu_torch.bench import FULL, knee_and_atlas
+    from oai_analysis_2_tpu_torch.core.image import image_from_array
+    from oai_analysis_2_tpu_torch.engine.pipeline import KneePipeline
+    from oai_analysis_2_tpu_torch.engine.segmenter import Segmenter3DInPatchClassWise
+    from oai_analysis_2_tpu_torch.mesh.components import filter_small_components
+    from oai_analysis_2_tpu_torch.mesh.ops import distance_to_surface, smooth_meshes
+    from oai_analysis_2_tpu_torch.mesh.processing import get_mesh_from_probability_map, get_thickness_meshes
+    from oai_analysis_2_tpu_torch.mesh.split import split_meshes
+    from oai_analysis_2_tpu_torch.ops.intensity import percentile_window
+    from oai_analysis_2_tpu_torch.parallel import BatchKneePipeline, CohortRunner
+
+    out = {}
+    # the second knee: both shells moved a few voxels, another noise seed
+    second = dict(FULL, fc=(47.5, 52.5, (84, 205, 198)), tc=(31.5, 35.5, (76, 236, 186)))
+    knees = [knee, image_from_array(knee_and_atlas(**second, seed=1)[0], spacing=(0.36, 0.36, 0.7), device="cuda")]
+
+    # (a) the pair, each knee alone and the swapped pair through the
+    # segmenter at the training tiling, which all three passes share
+    t0 = time.perf_counter()
+    seg = Segmenter3DInPatchClassWise(mode="pred", config={**pipe.segmenter.config, "inference_patch_size": "train"})
+    seg.pred_setup()
+    shape, bs = knee.shape, int(seg.config.get("batch_size", 4))
+    pre = [percentile_window(k, 0.1, 99.9, 0.0, 1.0).data for k in knees]
+    pair_fn = seg.volume_fn_batched(2, shape, bs, threshold=False)
+    alone_fn = seg.volume_fn_batched(1, shape, bs, threshold=False)
+    reset_launches(cuda_conv, cuda_kernels)
+    pair = pair_fn(torch.stack(pre))
+    torch.cuda.synchronize()
+    pair_launches = read_launches(cuda_conv, cuda_kernels)
+    swapped = pair_fn(torch.stack(pre[::-1]))
+    errs = {}
+    for i in range(2):
+        alone = alone_fn(pre[i][None])[0]
+        errs[f"knee{i}_pair_vs_alone"] = float((pair[i] - alone).abs().max())
+        errs[f"knee{i}_swapped_vs_pair"] = float((swapped[1 - i] - pair[i]).abs().max())
+    distinct = float((pair[0] - pair[1]).abs().max())
+    finite = bool(pair.isfinite().all()) and bool(swapped.isfinite().all())
+    if not finite or not distinct > 0.5 or not all(e <= 1e-3 for e in errs.values()):
+        raise AssertionError(f"batch integrity: pair vs alone / swapped max abs err {errs} (tol 1e-3), the knees' "
+                             f"maps differ by {distinct}, finite {finite}")
+    check_bf16_routes(pair_launches, "(a) the pair's segment")
+    out["integrity"] = {"tiles_a_knee": seg.partition.num_tiles(shape), "tile": list(seg.partition.tile_size),
+                        "pair_launches": pair_launches, "max_abs_err": errs, "tol": 1e-3,
+                        "bit_equal": all(e == 0.0 for e in errs.values()), "knees_differ_by": distinct,
+                        "seconds": time.perf_counter() - t0}
+    del pair, swapped, alone, pre
+    torch.cuda.empty_cache()
+
+    # (b) run_batch on the pair, twice; the second run is reported
+    bpipe = BatchKneePipeline(pipe.segmenter, pipe.atlas, registration_mode="network", finetune_steps=20,
+                              warp_dtype="bfloat16", device="cuda")
+    t0 = time.perf_counter()
+    first = bpipe.run_batch(knees)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(cuda_conv, cuda_kernels)
+    t0 = time.perf_counter()
+    results = bpipe.run_batch(knees)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(cuda_conv, cuda_kernels)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if launches != BATCH_LAUNCHES:
+        raise AssertionError(f"run_batch launches {launches}, want {BATCH_LAUNCHES}")
+    single = KneePipeline(pipe.segmenter, pipe.atlas, registration_mode="network", finetune_steps=20,
+                          warp_dtype="bfloat16", device="cuda")
+    refs, got = [], []
+    for i, (k, r) in enumerate(zip(knees, results)):
+        for name in ("fc_probmap", "tc_probmap"):
+            data = getattr(r, name).data
+            if tuple(data.shape) != pipe.atlas.shape or not bool(data.isfinite().all()) or \
+                    not (float(data.min()) >= 0.0 and 0.5 < float(data.max()) <= 1.0):
+                raise AssertionError(f"run_batch knee{i} {name}: shape {tuple(data.shape)}, out of range or no tissue")
+        got.append(summarize(r))
+        refs.append(summarize(single.run(k)))
+        check_meshes_close(got[i], refs[i], 0.005, 0.01, f"run_batch knee{i} against KneePipeline.run:")
+        if not 0.2 < got[i]["fc_inner_thickness_median_mm"] < 10.0:
+            raise AssertionError(f"run_batch knee{i}: implausible FC median {got[i]['fc_inner_thickness_median_mm']}")
+    timings = {k: v["seconds"] for k, v in results[0].timings.items()}
+    out["run_batch"] = {
+        "first_run_s": first_s, "batch_seconds": wall, "seconds_a_knee": wall / 2, "stage_seconds": timings,
+        "launches": launches, "max_memory_allocated_gb": peak_gb, "knees": got, "single_knees": refs,
+        # the two runs of one batch: the fine-tuning's gradient scatter-adds
+        # sum in the card's order of arrival
+        "rerun_gap": [probmap_gap(a.fc_probmap.data, b.fc_probmap.data) for a, b in zip(first, results)],
+    }
+    del first
+
+    # (c) run_batches over the pair twice: each batch as (b)'s (maps: mean
+    # gap <= 1e-3 and at most 0.5 % of voxels off by more than 0.05, the JAX
+    # package's batch criterion, tests/test_batch_pipeline.py:79; meshes
+    # within phase 8's tolerances)
+    t0 = time.perf_counter()
+    batches = bpipe.run_batches([knees, knees])
+    torch.cuda.synchronize()
+    pipelined = time.perf_counter() - t0
+    gaps = []
+    for bi, res in enumerate(batches):
+        for i, r in enumerate(res):
+            for name in ("fc_probmap", "tc_probmap"):
+                gap = probmap_gap(getattr(r, name).data, getattr(results[i], name).data)
+                if not (gap["mean"] <= 1e-3 and gap["share_over_0.05"] <= 0.005):
+                    raise AssertionError(f"run_batches batch {bi} knee{i} {name}: {gap} against run_batch")
+                gaps.append(gap)
+            check_meshes_close(summarize(r), got[i], 0.005, 0.01, f"run_batches batch {bi} knee{i}:")
+    out["run_batches"] = {"seconds": pipelined, "seconds_a_batch": pipelined / 2, "run_batch_seconds": wall,
+                          "overlap_gain": wall / (pipelined / 2), "max_map_gap": max(g["max"] for g in gaps),
+                          "stage_seconds": [{k: v["seconds"] for k, v in res[0].timings.items()} for res in batches]}
+    del batches
+
+    # (d) the cohort runner with the batch pipeline: 4 knees, batches of 2
+    root = Path(__file__).resolve().parent / "build" / "batch_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    calls = {"batch": 0, "single": 0}
+
+    def batch_fn(images):
+        calls["batch"] += 1
+        return [{"fc_points": r.fc_inner.n_points, "tc_points": r.tc_inner.n_points,
+                 "timings": r.timings} for r in bpipe.run_batch(images)]
+
+    def single_fn(image):
+        calls["single"] += 1
+        raise AssertionError("the single-item pipeline ran")
+
+    manifest = root / "manifest.json"
+    runner = CohortRunner(single_fn, manifest, batch_pipeline=batch_fn, batch_size=2, verbose=False)
+    reset_launches(cuda_conv, cuda_kernels)
+    t0 = time.perf_counter()
+    summary = runner.run([knees[0], knees[1], knees[0], knees[1]], keys=[f"knee{i}" for i in range(4)])
+    torch.cuda.synchronize()
+    cohort_s = time.perf_counter() - t0
+    cohort_launches = read_launches(cuda_conv, cuda_kernels)
+    bad = [r for r in shard_records(manifest) if r["status"] in ("failed", "retry")]
+    if summary != {"done": 4} or bad or calls != {"batch": 2, "single": 0}:
+        raise AssertionError(f"batch cohort: summary {summary}, calls {calls}, failed or retried records {bad}")
+    if cohort_launches != {k: 2 * v for k, v in BATCH_LAUNCHES.items()}:
+        raise AssertionError(f"batch cohort launches {cohort_launches}, want 2 x {BATCH_LAUNCHES}")
+    run_summary = json.loads((root / "manifest.json.summary.json").read_text())
+    out["cohort"] = {"seconds": cohort_s, "runner_wall_s": run_summary["wall_seconds"],
+                     "items_per_hour": run_summary["items_per_hour"], "calls": calls, "launches": cohort_launches}
+
+    # (e) marching tetrahedra on (b)'s first knee's warped maps
+    maps = [results[0].fc_probmap, results[0].tc_probmap]
+    iso = {}
+    for name, img in zip(("fc", "tc"), maps):
+        g = get_mesh_from_probability_map(img, method="tets")
+        c = get_mesh_from_probability_map(img.to("cpu"), method="tets")
+        if g.n_points == 0 or (g.n_points, g.n_cells) != (c.n_points, c.n_cells) or not np.array_equal(g.faces, c.faces):
+            raise AssertionError(f"tets {name}: card {g.n_points} points {g.n_cells} faces, CPU {c.n_points} {c.n_cells}"
+                                 " (or other faces)")
+        err = float(np.abs(g.vertices - c.vertices).max())
+        if not err <= 1e-5:
+            raise AssertionError(f"tets {name}: card and CPU vertices differ by {err} mm (> 1e-5)")
+        iso[name] = {"points": g.n_points, "cells": g.n_cells, "max_abs_err_mm": err}
+    sub = {}
+    t0 = time.perf_counter()
+    thick = get_thickness_meshes(maps, ["FC", "TC"], method="tets", timings_out=sub)
+    tets_s = time.perf_counter() - t0
+    # the CPU's meshes up to the distance: components, smoothing, split
+    raws = [filter_small_components(get_mesh_from_probability_map(m.to("cpu"), method="tets"), 3000) for m in maps]
+    cpu_splits = split_meshes(smooth_meshes(raws, device="cpu"), ["FC", "TC"])
+    split_err = 0.0
+    for tissue, pair_g, pair_c in zip(("fc", "tc"), thick, cpu_splits):
+        for side, g, c in zip(("inner", "outer"), pair_g, pair_c):
+            if g.n_points == 0 or (g.n_points, g.n_cells) != (c.n_points, c.n_cells) or \
+                    not np.array_equal(g.faces, c.faces):
+                raise AssertionError(f"tets {tissue}_{side}: card {g.n_points} points {g.n_cells} faces, CPU "
+                                     f"{c.n_points} {c.n_cells} (or other faces)")
+            split_err = max(split_err, float(np.abs(g.vertices - c.vertices).max()))
+    if not split_err <= 1e-5:
+        raise AssertionError(f"tets: smoothed meshes on the card and the CPU differ by {split_err} mm (> 1e-5)")
+    # the CPU's plain distance at every 100th vertex of each surface (all of
+    # them would take minutes on the host): the card's thickness within 1e-3 mm
+    t0 = time.perf_counter()
+    thick_err, n_checked = 0.0, 0
+    for pair_g, (c_in, c_out) in zip(thick, cpu_splits):
+        for g, c, other in ((pair_g[0], c_in, c_out), (pair_g[1], c_out, c_in)):
+            want = distance_to_surface(c.vertices[::100], other, device="cpu")
+            thick_err = max(thick_err, float(np.abs(g.point_data[::100] - want).max()))
+            n_checked += len(want)
+    if not thick_err <= 1e-3:
+        raise AssertionError(f"tets: card and CPU thickness differ by {thick_err} mm at {n_checked} points (> 1e-3)")
+    cpu_distance_s = time.perf_counter() - t0
+    tets = summarize(types.SimpleNamespace(fc_inner=thick[0][0], fc_outer=thick[0][1], tc_inner=thick[1][0],
+                                           tc_outer=thick[1][1]))
+    if not 0.2 < tets["fc_inner_thickness_median_mm"] < 10.0:
+        raise AssertionError(f"tets: implausible FC median {tets['fc_inner_thickness_median_mm']}")
+    out["tets"] = {"iso_surface": iso, "smoothed_max_abs_err_mm": split_err, "card_seconds": tets_s,
+                   "thickness_max_abs_err_mm": thick_err, "thickness_points_checked": n_checked,
+                   "cpu_distance_seconds": cpu_distance_s,
+                   "substage_seconds": sub, **tets,
+                   "mc_fc_inner_thickness_median_mm": got[0]["fc_inner_thickness_median_mm"]}
     return out
 
 
@@ -1127,6 +1402,10 @@ def main() -> int:
     kernels += [conv_case(torch, F, cuda_conv, name, shape, cin, cout, torch.bfloat16, 2e-2,
                           reps=5 if cin > 1 else 20, bn=True)
                 for name, shape, cin, cout in SEG_CONVS if name in ("enc0b", "enc0a")]
+    # the knee batch's shapes: 16 tiles of 32x128x128 a step
+    kernels += [conv_case(torch, F, cuda_conv, name, shape, cin, cout, torch.bfloat16, 2e-2,
+                          reps=5 if shape == TILE and cin > 1 else 20, others=False)
+                for name, shape, cin, cout in BATCH_CONVS]
     kernels += [conv_case(torch, F, cuda_conv, name, shape, cin, cout, torch.float32, 1e-4, reps=20,
                           clock=name == "stage2.dec1a")
                 for name, shape, cin, cout in gradicon_convs()]
@@ -1258,6 +1537,17 @@ def main() -> int:
     for k in kernels:
         k["launches_by_path"]["cohort_3_knees"] = cohort["cohort"]["launches"][k["name"].split(":")[0]]
     log(f"phase cohort from disk ({cohort['phase_s']:.1f} s, card {card}): {json.dumps(cohort)}")
+
+    # ---- 10. the knee batch -------------------------------------------------------
+    t0 = time.perf_counter()
+    batch = knee_batch(torch, cuda_conv, cuda_kernels, pipe, knee)
+    batch["phase_s"] = time.perf_counter() - t0
+    for k in kernels:
+        fam = k["name"].split(":")[0]
+        k["launches_by_path"]["knee_batch"] = batch["run_batch"]["launches"][fam]
+        if k["name"].endswith(":b16"):  # the batched path's own shapes
+            k["launches"] = batch["run_batch"]["launches"][fam]
+    log(f"phase knee batch ({batch['phase_s']:.1f} s, card {card}): {json.dumps(batch)}")
 
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

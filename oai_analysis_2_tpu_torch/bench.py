@@ -1,5 +1,6 @@
-"""Single-knee pipeline benchmark on the card (port of the headline phase of
-the repo-root `bench.py:87-330`, which imports JAX).
+"""Pipeline benchmark on the card (port of the headline, batched and
+reference-tiling phases of the repo-root `bench.py:87-578`, which imports
+JAX).
 
     python -m oai_analysis_2_tpu_torch bench
 
@@ -20,7 +21,13 @@ Prints ONE JSON line: `bench.py`'s headline keys ("metric", "value" in
 knees/hour/card, "unit", "vs_baseline", "seconds_per_knee",
 "knee_samples", "warmup_seconds", "warmup_seconds_fresh_process",
 "stage_seconds", mesh sizes and the FC median thickness) plus the card's
-name and power limit, the host CPU and `peak_memory_gb`.
+name and power limit, the host CPU and `peak_memory_gb`, then the batched
+keys (`batch2_seconds_per_knee`, `batch_efficiency_vs_single`,
+`batch8_seconds_total`, `batch8_device_seconds`,
+`batch8_thickness_seconds` and its `_smooth`, `_distance` and `_mc`
+seconds, `batch4_seconds_total`, `batch4_pipelined_seconds_per_batch`,
+`batch_overlap_gain`, `segment_seconds_reference_tiling`,
+`seconds_per_knee_reference_tiling`, and `<phase>_peak_memory_gb`).
 """
 
 from __future__ import annotations
@@ -97,6 +104,94 @@ def host_cpu() -> dict:
     return {"model": model, "count": os.cpu_count()}
 
 
+def _reset_peak(device) -> None:
+    if device.type == "cuda":
+        import torch
+
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def _peak_gb(device):
+    """Peak device memory since the last reset, in GB; None off the card."""
+    if device.type != "cuda":
+        return None
+    import torch
+
+    return round(torch.cuda.max_memory_allocated(device) / 1e9, 3)
+
+
+def _timed(device, fn):
+    """(seconds, result) of `fn()`, the device synchronized at the end."""
+    from oai_analysis_2_tpu_torch.core.device import synchronize
+
+    t0 = time.perf_counter()
+    result = fn()
+    synchronize(device)
+    return time.perf_counter() - t0, result
+
+
+def batched_phases(pipe, knee, dt: float, segment_seconds: float) -> dict:
+    """The knee-batched and reference-tiling phases (`bench.py:325-484,
+    :523-578`) on copies of `knee` with `pipe`'s segmenter, atlas and
+    registration; `dt` and `segment_seconds` are the single knee's seconds
+    and its segment stage's. Raises when a phase fails."""
+    from oai_analysis_2_tpu_torch.engine.segmenter import Segmenter3DInPatchClassWise
+    from oai_analysis_2_tpu_torch.ops.intensity import percentile_window
+    from oai_analysis_2_tpu_torch.parallel.batch import BatchKneePipeline
+
+    dev = pipe.device
+    reg = pipe.registerer
+    bpipe = BatchKneePipeline(pipe.segmenter, pipe.atlas, registration_config=pipe.reg_config,
+                              registration_mode=reg.mode, instance_scales=reg.instance_scales,
+                              instance_steps=reg.instance_steps, finetune_steps=reg.finetune_steps,
+                              finetune_scales=reg.finetune_scales, finetune_lr=reg.finetune_lr,
+                              normalize=pipe.normalize, warp_dtype=pipe.warp_dtype, device=dev)
+    out = {}
+
+    # B = 2: the batched segmenter's tiling (two knees exceed the slab budget)
+    pair = [knee, knee]
+    _reset_peak(dev)
+    bpipe.run_batch(pair)  # warm-up
+    per_knee = min(_timed(dev, lambda: bpipe.run_batch(pair))[0] for _ in range(2)) / 2.0
+    out.update(batch2_seconds_per_knee=round(per_knee, 4), batch_efficiency_vs_single=round(dt / per_knee, 4),
+               batch2_peak_memory_gb=_peak_gb(dev))
+
+    # B = 8 in four passes of two knees; thickness of all 16 tissues in one call
+    b8 = [knee] * 8
+    _reset_peak(dev)
+    total, r8 = min((_timed(dev, lambda: bpipe.run_batch(b8)) for _ in range(2)), key=lambda s: s[0])
+    t8 = {k: v["seconds"] for k, v in r8[0].timings.items()}
+    del r8
+    out.update(batch8_seconds_total=round(total, 4), batch8_device_seconds=t8["device_batch"],
+               batch8_thickness_seconds=t8["thickness_batch"],
+               batch8_thickness_smooth_seconds=t8["thickness_smooth"],
+               batch8_thickness_distance_seconds=t8["thickness_distance"],
+               batch8_thickness_mc_seconds=t8["thickness_mc"], batch8_peak_memory_gb=_peak_gb(dev))
+
+    # B = 4: one batch, then three through run_batches (one stream: the
+    # batches run in turn, so the gain reads 1 up to noise)
+    b4 = [knee] * 4
+    _reset_peak(dev)
+    b4_total = _timed(dev, lambda: bpipe.run_batch(b4))[0]
+    b4_pipelined = _timed(dev, lambda: bpipe.run_batches([b4, b4, b4]))[0] / 3.0
+    out.update(batch4_seconds_total=round(b4_total, 4), batch4_pipelined_seconds_per_batch=round(b4_pipelined, 4),
+               batch_overlap_gain=round(b4_total / b4_pipelined, 4), batch4_peak_memory_gb=_peak_gb(dev))
+    del bpipe
+
+    # the reference's training-patch tiling of the segment stage
+    seg_dial = Segmenter3DInPatchClassWise(mode="pred", config={**pipe.segmenter.config, "batch_size": 8,
+                                                               "inference_patch_size": "train"})
+    seg_dial.pred_setup()
+    pre = percentile_window(knee, 0.1, 99.9, 0.0, 1.0) if pipe.normalize else knee
+    _reset_peak(dev)
+    seg_dial.segment(pre)  # warm-up
+    dial = sorted(_timed(dev, lambda: seg_dial.segment(pre))[0] for _ in range(3))[1]
+    out.update(segment_seconds_reference_tiling=round(dial, 4),
+               seconds_per_knee_reference_tiling=round(dt - segment_seconds + dial, 4),
+               reference_tiling_peak_memory_gb=_peak_gb(dev))
+    return out
+
+
 def build_pipeline(device=None):
     """The bench pipeline and knee on `device` (None: the card)."""
     from oai_analysis_2_tpu_torch.analysis_object import _phantom_models_dir
@@ -164,8 +259,6 @@ def _measure_fresh_warmup() -> float:
 
 
 def main() -> dict:
-    import torch
-
     result_json = {
         "metric": "single-knee pipeline (seg+reg+warp+thickness), steady-state",
         "value": None,
@@ -180,7 +273,7 @@ def main() -> dict:
         pipe, knee = build_pipeline()
         pipe.run(knee)  # warm-up knee
         warm = time.perf_counter() - t_setup
-        torch.cuda.reset_peak_memory_stats()
+        _reset_peak(pipe.device)
 
         def timed_knee():
             t0 = time.perf_counter()
@@ -216,8 +309,14 @@ def main() -> dict:
         "fc_thickness_median_mm": round(fc_med, 3),
         "stage_seconds": {k: v["seconds"] for k, v in result.timings.items()},
         "registration_quality": result.registration_quality,
-        "peak_memory_gb": round(torch.cuda.max_memory_allocated() / 1e9, 3),
+        "peak_memory_gb": _peak_gb(pipe.device),
     })
+    try:
+        result_json.update(batched_phases(pipe, knee, dt, result.timings["segment"]["seconds"]))
+    except Exception as e:  # noqa: BLE001 — report, then fail
+        result_json["error"] = f"batched phase failed: {e!r}"
+        print(json.dumps(result_json))
+        raise
     print(json.dumps(result_json))
     return result_json
 

@@ -81,6 +81,7 @@ def register_pair(
     finetune_scales: Tuple[int, ...] = (2,),
     finetune_lr: float = 0.15,
     b_on_grid: Optional[torch.Tensor] = None,
+    a_on_grid: Optional[torch.Tensor] = None,
     gicon_grad: Optional[str] = None,
     early_stop: Optional[float] = None,
     quality_out: Optional[dict] = None,
@@ -94,11 +95,11 @@ def register_pair(
     given, is loaded onto `model` first; a model that never had weights
     loaded raises `ValueError`. Without a model: instance optimization from
     the identity (`instance_scales`, `instance_steps`). `b_on_grid` is
-    image_b already resampled onto its registration grid (the atlas cache).
-    `gicon_grad` (None: the package default) and `early_stop` are
-    `register_pair_instance`'s. `quality_out` receives the
-    inverse-consistency error (voxels and mm) and folded-Jacobian fractions
-    as 0-d tensors."""
+    image_b already resampled onto its registration grid (the atlas cache),
+    `a_on_grid` the same for image_a. `gicon_grad` (None: the package
+    default) and `early_stop` are `register_pair_instance`'s. `quality_out`
+    receives the inverse-consistency error (voxels and mm) and
+    folded-Jacobian fractions as 0-d tensors."""
     if model is not None:
         if params is not None:
             model.load_params(params)
@@ -108,7 +109,7 @@ def register_pair(
     cfg = config or (model.config if model is not None else GradICONConfig())
     grid_a = _net_grid_reference(image_a, cfg.grid_shape)
     grid_b = _net_grid_reference(image_b, cfg.grid_shape)
-    a = resample_image(image_a, grid_a).data.to(torch.float32)
+    a = a_on_grid if a_on_grid is not None else resample_image(image_a, grid_a).data.to(torch.float32)
     b = b_on_grid if b_on_grid is not None else resample_image(image_b, grid_b).data.to(torch.float32)
     common = dict(lncc_window=cfg.lncc_window, lambda_reg=lambda_reg, diffusion_weight=diffusion_weight,
                   gicon_grad=gicon_grad, early_stop=early_stop)
@@ -199,8 +200,11 @@ class ICON_Registration:
             if not grid_ok:
                 raise ValueError(f"network mode needs grid_shape divisible by {need}, got {self.config.grid_shape}")
             self.model = GradICON(self.config, device=self.device)
-            if self.params is None and default_gradicon_weights_path().exists():
-                self.params, _ = load_gradicon_checkpoint()
+            # shipped weights of another architecture are not loaded: the
+            # caller brings its own through load_params (the JAX package
+            # keeps them and fails on the first forward pass)
+            if self.params is None:
+                self._try_load_default()
             if self.params is not None:
                 self.model.load_params(self.params)
         elif mode != "instance":

@@ -123,6 +123,15 @@ def smooth_meshes(meshes, num_iterations: int = 150, relaxation: float = 0.01, d
     return out
 
 
+def smooth_mesh_groups(groups, num_iterations: int = 150, relaxation: float = 0.01, device=None):
+    """Smooth groups of meshes (one group: one knee's tissues), each as
+    `smooth_meshes(group)`; a list of lists mirroring `groups` (port of
+    ops.py:333-425, whose stacking puts one group on each chip). One
+    union per group, not one for all: the host adjacency's sort grows
+    faster than the meshes (tools/port_smooth_split.py)."""
+    return [smooth_meshes(g, num_iterations, relaxation, device) for g in groups]
+
+
 def distance_to_surface_tensor(points: np.ndarray, target: Mesh, device=None) -> torch.Tensor:
     """Unsigned exact distance from each point to `target`'s surface, left on
     `device` (no host sync)."""

@@ -1,11 +1,13 @@
 """Probability maps -> meshes: the reference `mesh_processing.py` surface
 (port of `oai_analysis_2_tpu/mesh/processing.py:58-255`; `split_mesh` is
-exported here as there). Iso-surfaces are marching cubes only: method
-"tets" (marching tetrahedra) raises until it is ported.
+exported here as there). Iso-surfaces: marching cubes ("mc", the default)
+or marching tetrahedra ("tets").
 
-Single-device form: marching cubes and smoothing on the card, component
+Single-device form: the iso-surface and smoothing on the card, component
 filtering and the k-means split on the host, the point-to-triangle
-distance through the hand-written kernel.
+distance through the hand-written kernel. The JAX version's multi-device
+placements of `get_thickness_meshes` (`smooth_sharding`,
+`distance_devices`, `mc_devices`) have no counterpart on one card.
 """
 
 from __future__ import annotations
@@ -19,13 +21,15 @@ import torch
 from oai_analysis_2_tpu_torch.core.device import synchronize
 from oai_analysis_2_tpu_torch.core.image import Image
 from oai_analysis_2_tpu_torch.mesh.components import filter_small_components
-from oai_analysis_2_tpu_torch.mesh.marching_cubes import marching_cubes
+from oai_analysis_2_tpu_torch.mesh.marching import marching_tetrahedra
+from oai_analysis_2_tpu_torch.mesh.marching_cubes import marching_cubes, marching_cubes_multi
 from oai_analysis_2_tpu_torch.mesh.ops import (
     distance_to_surface_tensor,
     face_centroids,
     face_normals,
     get_distance,
     smooth_mesh,
+    smooth_mesh_groups,
     smooth_meshes,
 )
 from oai_analysis_2_tpu_torch.mesh.split import split_mesh, split_meshes
@@ -72,14 +76,15 @@ def _extract(image: Image, level: float, method: str) -> Mesh:
     if method == "mc":
         return marching_cubes(_as_xyz(image), level, _spacing(image))
     if method == "tets":
-        raise NotImplementedError("method 'tets' (marching tetrahedra) is not ported yet; use 'mc'")
+        return marching_tetrahedra(_as_xyz(image), level, _spacing(image))
     raise ValueError(f"unknown iso-surface method {method!r} (use 'mc' or 'tets')")
 
 
 def get_mesh(image: Image, num_iterations: int = 150, level: float = 0.5,
              filter_threshold: int = 3000, method: str = "mc") -> Mesh:
-    """Probability map -> smoothed surface mesh: marching cubes at `level`
-    on the [x, y, z] volume with spacing-scaled coordinates, components of
+    """Probability map -> smoothed surface mesh: the iso-surface at `level`
+    ("mc" marching cubes, "tets" marching tetrahedra) on the [x, y, z]
+    volume with spacing-scaled coordinates, components of
     `filter_threshold` cells or fewer dropped, Laplacian smoothing on the
     image's device."""
     raw = _extract(image, level, method)
@@ -101,13 +106,22 @@ def get_thickness_mesh(image: Image, mesh_type: str = "FC", num_iterations: int 
 
 
 def get_thickness_meshes(images, mesh_types, num_iterations: int = 150, level: float = 0.5,
-                         filter_threshold: int = 3000, timings_out: Optional[dict] = None):
-    """For each probability map and its type ("FC" / "TC"): iso-surface,
-    small-component removal, Laplacian smoothing (all tissues in one loop),
-    inner/outer split, and per-point thickness as the distance to the other
-    surface. Returns [(inner, outer), ...]; `timings_out` receives
-    per-substage seconds."""
+                         filter_threshold: int = 3000, method: str = "mc", group_size: int = 0,
+                         timings_out: Optional[dict] = None):
+    """For each probability map and its type ("FC" / "TC"): iso-surface
+    (`method` as in `get_mesh`; marching cubes through
+    `marching_cubes_multi` when every map shares shape and spacing),
+    small-component removal, Laplacian smoothing in one loop, inner/outer
+    split, and per-point thickness as the distance to the other surface,
+    every distance launch queued before the first result is read.
+    `group_size` > 0 (dividing the map count) smooths each run of that many
+    tissues (one knee's FC + TC) as its own union (`smooth_mesh_groups`);
+    0 smooths every tissue in one union. Smoothing never crosses meshes,
+    so both give the same meshes. Returns [(inner, outer), ...];
+    `timings_out` receives per-substage seconds."""
     images = list(images)
+    if not images:
+        return []
     dev = images[0].device
     t = time.perf_counter()
 
@@ -119,14 +133,19 @@ def get_thickness_meshes(images, mesh_types, num_iterations: int = 150, level: f
             timings_out[name] = round(now - t, 4)
             t = now
 
-    extracted = [
-        marching_cubes(_as_xyz(im), level, _spacing(im))
-        for im in images
-    ]
+    spacings = [_spacing(im) for im in images]
+    if method == "mc" and len({im.shape for im in images}) == 1 and len(set(spacings)) == 1:
+        extracted = marching_cubes_multi([_as_xyz(im) for im in images], level, spacings[0])
+    else:
+        extracted = [_extract(im, level, method) for im in images]
     mark("mc")
     raws = [filter_small_components(r, filter_threshold) for r in extracted]
     mark("components")
-    smoothed = smooth_meshes(raws, num_iterations=num_iterations, device=dev)
+    if group_size and len(raws) % group_size == 0:
+        groups = [raws[i : i + group_size] for i in range(0, len(raws), group_size)]
+        smoothed = [m for g in smooth_mesh_groups(groups, num_iterations, device=dev) for m in g]
+    else:
+        smoothed = smooth_meshes(raws, num_iterations=num_iterations, device=dev)
     mark("smooth")
     splits = split_meshes(smoothed, list(mesh_types))
     mark("split")

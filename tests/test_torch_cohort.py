@@ -50,8 +50,13 @@ def _runner(pipeline, tmp_path, **kw):
 
 
 def test_parallel_exports():
-    assert TP.__all__ == ["CohortManifest", "CohortRunner"]
+    """The JAX package's `parallel` exports but its multi-device sharding
+    helpers (one card)."""
+    from oai_analysis_2_tpu_torch.parallel.batch import BatchKneePipeline
+
+    assert TP.__all__ == ["BatchKneePipeline", "CohortManifest", "CohortRunner"]
     assert TP.CohortRunner is CohortRunner and TP.CohortManifest is CohortManifest
+    assert TP.BatchKneePipeline is BatchKneePipeline
 
 
 # ---------------------------------------------------------------------------

@@ -165,6 +165,30 @@ def test_cin1_conv_matches_plain(card, cout, shape, use_bias, relu, out_dtype):
         torch.testing.assert_close(got.float(), got_f32.to(torch.bfloat16).float(), atol=0, rtol=0)
 
 
+# one step of the knee batch (16 tiles of 32x128x128: 8 tiles x 2 knees, the
+# training tiling that two full-size knees take) at enc0b and enc3b (sm90)
+# and enc0a (cin1): the batch against the plain version, and tiles 0, 7 and
+# 15 bit-equal to the kernel on that tile alone (the batch index is the
+# grid's z)
+BATCH_TILE_CASES = [((16, 32, 128, 128, 32), 64), ((16, 4, 16, 16, 512), 512), ((16, 32, 128, 128, 1), 32)]
+
+
+@pytest.mark.parametrize("shape,cout", BATCH_TILE_CASES)
+def test_bf16_routes_at_the_knee_batch_tiles(card, shape, cout):
+    cin = shape[-1]
+    rng = np.random.default_rng(13)
+    x = torch.tensor(rng.normal(0, 1, shape).astype(np.float32), device=card).to(torch.bfloat16)
+    k = torch.tensor((rng.normal(0, 1, (3, 3, 3, cin, cout)) / np.sqrt(27 * cin)).astype(np.float32),
+                     device=card).to(torch.bfloat16)
+    b = torch.tensor(rng.normal(0, 0.5, (cout,)).astype(np.float32), device=card)
+    got = cuda_conv.conv3d(x, k, b, relu=True, out_dtype=torch.float32)
+    want = cuda_conv.conv3d_reference(x, k, b, relu=True, out_dtype=torch.float32)
+    torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
+    for i in (0, 7, 15):
+        alone = cuda_conv.conv3d(x[i : i + 1], k, b, relu=True, out_dtype=torch.float32)
+        torch.testing.assert_close(got[i : i + 1], alone, atol=0, rtol=0)
+
+
 def test_cin1_uncounted_launches(card):
     """The measurements' launches at a cin1 shape: the wmma build agrees
     with the cin1 route, the stores-only build writes relu(bias) everywhere,

@@ -95,7 +95,8 @@ def test_mesh_helpers_match():
     """get_mesh_from_probability_map ("mc"): the same vertices (sorted,
     within 1e-5 mm) and faces counts; get_cell_centroid / get_cell_normals
     within 1e-5 on the same mesh; get_vtk_mesh drops the same components;
-    method "tets" is not ported and raises."""
+    method "tets" gives JAX's vertices (in the same order, within 1e-5 mm)
+    and faces."""
     vol = np.maximum(_ball(), _ball(r=2.0, center=(3, 3, 3)))
     timg, jimg = _pair(vol, spacing=(0.5, 0.6, 0.7))
     got = TP.get_mesh_from_probability_map(timg)
@@ -108,8 +109,11 @@ def test_mesh_helpers_match():
     kept_j = JP.get_vtk_mesh(got.vertices, got.faces, filter_threshold=1000)
     assert kept_t.n_cells == kept_j.n_cells < got.n_cells
     np.testing.assert_array_equal(kept_t.faces, kept_j.faces)
-    with pytest.raises(NotImplementedError, match="tets"):
-        TP.get_mesh_from_probability_map(timg, method="tets")
+    got = TP.get_mesh_from_probability_map(timg, method="tets")
+    want = JP.get_mesh_from_probability_map(jimg, method="tets")
+    assert got.n_points == want.n_points > 500
+    np.testing.assert_allclose(got.vertices, want.vertices, atol=1e-5)
+    np.testing.assert_array_equal(got.faces, want.faces)
     with pytest.raises(ValueError, match="unknown iso-surface method"):
         TP.get_mesh(timg, method="cubes")
 
