@@ -265,15 +265,13 @@ def check_bf16_routes(launches, what):
                              f"enc0a launch ({launches['conv3d_cin1']}); wmma took {launches['conv3d_wmma']}, want 0")
 
 
-def gradicon_convs(width=REG_WIDTH, grid=REG_GRID):
-    """(name, x shape without channels, Cin, Cout) of every 3x3x3 conv of the
-    finest GradICON stage, from the port's stage spec: a conv of encoder
-    level l, or of the decoder level whose skip comes from l, runs on the
-    grid halved l times (maxpool floors odd sizes)."""
-    from oai_analysis_2_tpu_torch.models.gradicon import _stage_spec
+def unet_convs(spec, shape, prefix):
+    """(name, x shape without channels, Cin, Cout) of every 3x3x3 conv of a
+    UNet spec whose input is `shape` (B, D, H, W): a conv of encoder level
+    l, or of the decoder level whose skip comes from l, runs on the input
+    halved l times (maxpool floors odd sizes)."""
     from oai_analysis_2_tpu_torch.models.unet3d import param_shapes
 
-    spec = _stage_spec(width)
     convs = []
     for name, leaves in param_shapes(spec).items():
         kshape = leaves["kernel"]
@@ -281,8 +279,26 @@ def gradicon_convs(width=REG_WIDTH, grid=REG_GRID):
             continue
         li = int(name[3])
         level = li if name.startswith("enc") else len(spec.enc) - 2 - li
-        convs.append((f"stage2.{name}", (1,) + tuple(g >> level for g in grid), kshape[3], kshape[4]))
+        convs.append((f"{prefix}{name}", shape[:1] + tuple(g >> level for g in shape[1:]), kshape[3], kshape[4]))
     return convs
+
+
+def gradicon_convs(width=REG_WIDTH, grid=REG_GRID):
+    """(name, x shape without channels, Cin, Cout) of every 3x3x3 conv of the
+    finest GradICON stage, from the port's stage spec (`unet_convs`)."""
+    from oai_analysis_2_tpu_torch.models.gradicon import _stage_spec
+
+    return unet_convs(_stage_spec(width), (1,) + tuple(grid), "stage2.")
+
+
+def conv_bounds(voxels, cin, cout, esize, out_size, bias=True):
+    """(bound ms, bound_by) of one SAME 3x3x3 conv: operations over the
+    type's peak against bytes (x, weights, bias, output once) over HBM."""
+    flops = 2.0 * 27 * cin * cout * voxels
+    nbytes = voxels * cin * esize + 27 * cin * cout * esize + (cout * 4 if bias else 0) + voxels * cout * out_size
+    peak = BF16_FLOPS if esize == 2 else F32_FLOPS
+    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
 
 
 def conv_case(torch, F, cuda_conv, name, shape, cin, cout, dtype, tol, reps, clock=False, bn=False, others=True):
@@ -319,12 +335,8 @@ def conv_case(torch, F, cuda_conv, name, shape, cin, cout, dtype, tol, reps, clo
     b_lib = b.to(dtype)
     library_ms = time_ms(torch, lambda: F.conv3d(x_cl, w_cl, b_lib, padding=1), reps)
     voxels = int(np.prod(shape))
-    esize = x.element_size()
     flops = 2.0 * 27 * cin * cout * voxels
-    out_size = torch.finfo(out_dtype).bits // 8
-    nbytes = voxels * cin * esize + 27 * cin * cout * esize + cout * 4 + voxels * cout * out_size
-    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
-    bound_ops, bound_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms, bound_by = conv_bounds(voxels, cin, cout, x.element_size(), torch.finfo(out_dtype).bits // 8)
     extra = {}  # other builds are timed at the ReLU route's rows only
     if route == "f32":
         # uncounted launches: the f32 build that this route replaced, and the
@@ -376,8 +388,8 @@ def conv_case(torch, F, cuda_conv, name, shape, cin, cout, dtype, tol, reps, clo
         **({} if out_dtype == torch.float32 else {"max_abs_err_f32_out": err_f32, "tol_f32_out": f32_tol}),
         "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(bound_ops, bound_bytes),
-        "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
         "library_ms": library_ms,
         "tflops": flops / ms * 1e-9,
         **extra,
@@ -1366,6 +1378,469 @@ def instance_steps(torch, pipe, knee, steps=20) -> dict:
     }
 
 
+# ---- phase 11: training -------------------------------------------------------
+
+TRAIN_TILE = (2, 32, 128, 128)  # the segmentation trainer's batch: 2 patches of 32x128x128
+TRAIN_SMALL_LR = 1e-4  # (b): Adam's step, small so that sign-noise moves stay small
+TRAIN_STEPS = 20  # (c)
+SEG_TRAIN_STEPS = 5  # (d)
+
+
+def conv_train_case(torch, cuda_conv, name, shape, cin, cout, dtype, reps, dgrad=True):
+    """One conv of a trainer under autograd: `Conv3dFn`'s forward, dx, dW and
+    db against autograd through the plain version, at bf16 2e-2 / f32 1e-4
+    (the forward and dx elementwise; dW and db against their largest
+    element, as they sum over every voxel). The output gradient is zero
+    where the plain pre-ReLU value is within 1e-3 of the kink, where the
+    two accumulation orders may pick another side. Times: the forward and
+    the data gradient (its own launch, `conv3d` of the masked gradient with
+    the flipped kernel), the weight gradient (cuDNN), their plain versions
+    and cuDNN's forward and data gradient. Returns the forward row and the
+    data gradient's row (None when `dgrad` is off, as for enc0a)."""
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    route = cuda_conv.conv3d_route(cin, cout, dtype)
+    droute = cuda_conv.conv3d_route(cout, cin, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(len(name) * 1000 + cin + cout)
+    x = torch.randn(shape + (cin,), device="cuda", generator=gen).to(dtype)
+    k = (torch.randn((3, 3, 3, cin, cout), device="cuda", generator=gen) / (27 * cin) ** 0.5).to(dtype)
+    b = torch.randn((cout,), device="cuda", generator=gen) * 0.1
+    pre = cuda_conv.conv3d_reference(x, k, b, relu=False, out_dtype=torch.float32)
+    dy = (torch.randn(shape + (cout,), device="cuda", generator=gen) * (pre.abs() > 1e-3)).to(dtype)
+    del pre
+
+    def grads(fn):
+        leaves = [x.clone().requires_grad_(dgrad), k.clone().requires_grad_(), b.clone().requires_grad_()]
+        out = fn(*leaves, relu=True, out_dtype=dtype)
+        got = torch.autograd.grad(out, leaves if dgrad else leaves[1:], dy)
+        return [out.detach()] + ([None] if not dgrad else []) + list(got)
+
+    got = grads(cuda_conv.conv3d_train)
+    want = grads(cuda_conv.conv3d_reference)
+    errs = {"fwd": check_close(f"train {name} forward", got[0], want[0], tol, tol)}
+    if dgrad:
+        errs["dx"] = check_close(f"train {name} dx", got[1], want[1], tol, tol)
+    for key, g, w in (("dW", got[2], want[2]), ("db", got[3], want[3])):
+        scale = float(w.float().abs().max())
+        errs[key] = check_close(f"train {name} {key}", g.float() / scale, w.float() / scale, tol, tol) * scale
+    del got, want
+    g = (dy * (cuda_conv.conv3d(x, k, b, relu=True, out_dtype=dtype) > 0)).contiguous()
+    kd = cuda_conv.dgrad_kernel(k)
+    voxels = int(np.prod(shape))
+    esize = x.element_size()
+    fwd_ms = time_ms(torch, lambda: cuda_conv.conv3d(x, k, b, relu=True, out_dtype=dtype), reps)
+    wgrad_ms = time_ms(torch, lambda: cuda_conv.conv3d_weight_grad(x, g), reps)
+    wgrad_plain_ms = time_ms(torch, lambda: cuda_conv.conv3d_weight_grad_reference(x, g), 1)
+    # yardsticks, never called by the port: cuDNN's forward (bias fused,
+    # no ReLU) and data gradient on the channels-last views
+    x_cl, g_cl = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
+    w_cl = k.permute(4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
+    b_lib = b.to(dtype)
+    fwd_lib_ms = time_ms(torch, lambda: torch.nn.functional.conv3d(x_cl, w_cl, b_lib, padding=1), reps)
+    wb, wb_by = conv_bounds(voxels, cin, cout, esize, esize)
+    # weight gradient: x and dy read once, dW written once, the same products
+    w_bytes = voxels * (cin + cout) * esize + 27 * cin * cout * esize
+    w_ops = 2.0 * 27 * cin * cout * voxels / (BF16_FLOPS if esize == 2 else F32_FLOPS) * 1e3
+    fwd = {
+        "name": f"conv3d_{route}:train.{name}",
+        "route": "cuda",
+        "source": CONV_SOURCES[route],
+        "replaces": "oai_analysis_2_tpu/ops/pallas_conv.py:100",
+        "shape": f"x {list(shape) + [cin]} -> Cout {cout}, forward under autograd",
+        "launches": None,
+        "max_abs_err": errs["fwd"],
+        "tol": {"atol": tol, "rtol": tol},
+        "grad_errs": errs,
+        "ms": fwd_ms,
+        "plain_ms": time_ms(torch, lambda: cuda_conv.conv3d_reference(x, k, b, relu=True, out_dtype=dtype), 1),
+        "bound_ms": wb,
+        "bound_by": wb_by,
+        "library_ms": fwd_lib_ms,
+        "wgrad_ms": wgrad_ms,
+        "wgrad_plain_ms": wgrad_plain_ms,
+        "wgrad_bound_ms": max(w_ops, w_bytes / HBM_BYTES_PER_S * 1e3),
+        "tflops": 2.0 * 27 * cin * cout * voxels / fwd_ms * 1e-9,
+    }
+    rows = [fwd, None]
+    if dgrad:
+        dgrad_ms = time_ms(torch, lambda: cuda_conv.conv3d(g, kd, None, relu=False, out_dtype=dtype), reps)
+        dlib_ms = time_ms(torch, lambda: torch.nn.grad.conv3d_input(x_cl.shape, w_cl, g_cl, padding=1), reps)
+        db, db_by = conv_bounds(voxels, cout, cin, esize, esize, bias=False)
+        rows[1] = {
+            "name": f"conv3d_{droute}:train.{name}:dgrad",
+            "route": "cuda",
+            "source": CONV_SOURCES[droute],
+            "replaces": "oai_analysis_2_tpu/ops/pallas_conv.py:100",
+            "shape": f"dy {list(shape) + [cout]} -> Cin {cin}, the data gradient (flipped kernel)",
+            "launches": None,
+            "max_abs_err": errs["dx"],
+            "tol": {"atol": tol, "rtol": tol},
+            "ms": dgrad_ms,
+            "plain_ms": time_ms(torch, lambda: cuda_conv.conv3d_reference(g, kd, None, out_dtype=dtype), 1),
+            "bound_ms": db,
+            "bound_by": db_by,
+            "library_ms": dlib_ms,
+            "tflops": 2.0 * 27 * cin * cout * voxels / dgrad_ms * 1e-9,
+        }
+    del x, k, b, dy, g, kd, x_cl, g_cl, w_cl
+    torch.cuda.empty_cache()
+    return rows
+
+
+def route_counts(cuda_conv) -> dict:
+    """Forward and data-gradient launches by route since the last reset."""
+    c = cuda_conv.conv3d
+    out = {}
+    for route in cuda_conv.ROUTES:
+        dg = getattr(c, f"launches_dgrad_{route}")
+        out[f"fwd_{route}"] = getattr(c, f"launches_{route}") - dg
+        out[f"dgrad_{route}"] = dg
+    return out
+
+
+def expected_train_counts(cuda_conv, convs, dtype, forwards, no_input_grad) -> dict:
+    """Route counts of `forwards` UNet forwards (and backwards) over `convs`;
+    `no_input_grad` of those forwards take no enc0a data gradient."""
+    from collections import Counter
+
+    fwd = Counter(cuda_conv.conv3d_route(cin, cout, dtype) for _, _, cin, cout in convs)
+    dg = Counter(cuda_conv.conv3d_route(cout, cin, dtype) for _, _, cin, cout in convs)
+    enc0a = [c for c in convs if c[0].endswith("enc0a")][0]
+    out = {}
+    for route in cuda_conv.ROUTES:
+        out[f"fwd_{route}"] = forwards * fwd[route]
+        out[f"dgrad_{route}"] = forwards * dg[route]
+    out[f"dgrad_{cuda_conv.conv3d_route(enc0a[3], enc0a[2], dtype)}"] -= no_input_grad
+    return out
+
+
+def compare_train_runs(card: dict, cpu: dict, lr: float, steps: int, what: str) -> dict:
+    """Card against CPU from the same params, f32; every gap is measured,
+    then any beyond its tolerance fails. Every step's outputs within 1e-3
+    relative (GradICON's small reg term 1e-2): a max-pool or ReLU kink can
+    move a later step by 1e-4 between two rounding orders (the JAX package
+    against the port on the CPU: 1.3e-4 at step 2 of (b)'s GradICON). The
+    first step's gradients within 1e-3 of the leaf's largest plus 1e-5 of
+    the model's largest (the deepest leaves' gradients are sums that
+    cancel, so their rounding follows the model's scale: on the card the
+    gathers' backward adds with atomics in another order). The first
+    step's params within 2e-2 lr on elements whose gradient is above 1e-2
+    of that tolerance's scale; the last params within 0.1 x steps x lr on
+    leaves whose largest first gradient is above 5e-2 (Adam moves a
+    near-zero gradient by +-lr, its sign set by rounding, and that moves
+    later gradients)."""
+    gaps = {"loss_rel": [], "grad_over_tol": 0.0, "worst_grad_leaf": None, "params1": 0.0, "params_last": 0.0}
+    bad = []
+    for i, (a, b) in enumerate(zip(card["losses"], cpu["losses"])):
+        rels = [abs(x - y) / max(abs(y), 1e-12) for x, y in zip(a, b)]
+        gaps["loss_rel"].append(rels)
+        bad += [f"step {i} output {j}: card {a[j]}, CPU {b[j]}" for j, rel in enumerate(rels)
+                if not rel <= (1e-2 if j == 2 else 1e-3)]  # GradICON's reg term is small and kinked
+    top = max(float(np.abs(g).max()) for g in cpu["grads1"].values())
+    for key, g in cpu["grads1"].items():
+        gmax = float(np.abs(g).max())
+        tol = 1e-3 * gmax + 1e-5 * top
+        over = float(np.abs(card["grads1"][key] - g).max()) / tol
+        if over > gaps["grad_over_tol"]:
+            gaps["grad_over_tol"], gaps["worst_grad_leaf"] = over, key
+        if not over <= 1.0:
+            bad.append(f"first gradient of {key}: {over} x its tolerance {tol}")
+        mask = np.abs(g) > 1e-2 * (gmax + 1e-2 * top)
+        d1 = float(np.abs(card["params1"][key] - cpu["params1"][key])[mask].max()) if mask.any() else 0.0
+        gaps["params1"] = max(gaps["params1"], d1)
+        if not d1 <= 2e-2 * lr:
+            bad.append(f"first step's {key} off by {d1}")
+        if gmax > 5e-2:
+            dl = float(np.abs(card["params"][key] - cpu["params"][key]).max())
+            gaps["params_last"] = max(gaps["params_last"], dl)
+            if not dl <= 0.1 * steps * lr:
+                bad.append(f"{key} after {steps} steps off by {dl}")
+    if bad:
+        raise AssertionError(f"{what}: {bad[:8]} ({len(bad)} in all); gaps {json.dumps(gaps)}")
+    return gaps
+
+
+def small_train_runs(torch, cuda_conv) -> dict:
+    """Phase 11 (b): 3 f32 steps on the card and on the CPU from the same
+    params: `make_augmented_train_step` (GradICON width 4, grid 16x32x32,
+    scales (2, 1), sup 1.0, sim 0.1) and `make_train_step` on UNet_light4
+    (2 patches of 16x32x32)."""
+    from oai_analysis_2_tpu_torch.engine.training import make_train_step
+    from oai_analysis_2_tpu_torch.models.gradicon import GradICON, GradICONConfig
+    from oai_analysis_2_tpu_torch.models.synthetic import (
+        make_augmented_train_step,
+        make_phantom_pool,
+        random_lowres_field,
+    )
+    from oai_analysis_2_tpu_torch.models.unet3d import NETWORK_SPECS, UNet3D
+    from oai_analysis_2_tpu_torch.utils import optim
+    from oai_analysis_2_tpu_torch.utils.checkpoint import carry_params, export_params, flatten_tree
+
+    steps, lr = 3, TRAIN_SMALL_LR
+    cfg = GradICONConfig(grid_shape=(16, 32, 32), scales=(2, 1), stage_width=4)
+    init = GradICON(cfg, device="cpu").init(torch.Generator().manual_seed(0), zero_heads=False).params_list()
+    pool = make_phantom_pool(3, cfg.grid_shape, seed=1)
+    rng = np.random.default_rng(0)
+    batches = [(pool[[0, 1]], pool[[0, 2]],
+                np.stack([random_lowres_field(rng, (2, 4, 4), 0.05, 0.04) for _ in range(2)]),
+                np.stack([random_lowres_field(rng, (2, 4, 4), 0.05, 0.04) for _ in range(2)]),
+                np.asarray([1.0, 0.0], np.float32)) for _ in range(steps)]
+    spec = NETWORK_SPECS["UNet_light4"].replace(bias=True)
+    unet_init = export_params(UNet3D(spec, device="cpu").init(torch.Generator().manual_seed(1)))
+    rng = np.random.default_rng(2)
+    seg_batches = [(rng.uniform(0, 1, (2, 16, 32, 32, 1)).astype(np.float32),
+                    (rng.uniform(0, 1, (2, 16, 32, 32, 2)) > 0.6).astype(np.float32)) for _ in range(steps)]
+
+    def run(dev, kind):
+        if kind == "gradicon":
+            model = GradICON(cfg, device=dev)
+            model.load_params(init)
+            step = make_augmented_train_step(model, optim.adam(list(model.parameters()), lr), 1.0, 0.1)
+            data = [[torch.as_tensor(v, device=dev) for v in b] for b in batches]
+        else:
+            model = UNet3D(spec, device=dev)
+            carry_params(model, unet_init)
+            step = make_train_step(model, optim.adam(list(model.parameters()), lr))
+            data = seg_batches
+        out = {"losses": []}
+        for i, batch in enumerate(data):
+            res = step(*batch)
+            out["losses"].append([float(v) for v in (res if isinstance(res, tuple) else (res,))])
+            if i == 0:
+                out["grads1"] = {k: p.grad.detach().cpu().numpy().copy() for k, p in model.named_parameters()}
+                out["params1"] = flatten_tree(export_params(model))
+                out["params1"] = {k.replace("/", "."): v for k, v in out["params1"].items()}
+        out["params"] = {k.replace("/", "."): v for k, v in flatten_tree(export_params(model)).items()}
+        return out
+
+    report = {}
+    for kind in ("gradicon", "unet_light4"):
+        cuda_conv.reset_launches()
+        card = run("cuda", kind)
+        torch.cuda.synchronize()
+        launches = route_counts(cuda_conv)
+        cpu = run("cpu", kind)
+        report[kind] = {"gaps": compare_train_runs(card, cpu, lr, steps, f"small {kind} steps"),
+                        "card_losses": card["losses"], "cpu_losses": cpu["losses"], "launches": launches}
+        if launches["fwd_f32"] <= 0 or launches["dgrad_f32"] <= 0:
+            raise AssertionError(f"small {kind} steps: f32 route launches {launches}")
+    return report
+
+
+def gradicon_training(torch, cuda_conv, tmp_root) -> dict:
+    """Phase 11 (c): the w24 recipe of `tools/train_w24_cycles.sh` (bf16,
+    width 24, grid 48x96x96, batch 2, sup 1.0, sim 0.1, peak lr 3e-4)
+    resumed from the shipped weights, through the port's
+    `examples.train_gradicon_synthetic` for 20 steps on a pool of 8
+    phantoms; the checkpoint reloaded bit-equal and registering a pair."""
+    from oai_analysis_2_tpu_torch.core.image import image_from_array
+    from oai_analysis_2_tpu_torch.engine.registration import register_pair
+    from oai_analysis_2_tpu_torch.examples import train_gradicon_synthetic as trainer
+    from oai_analysis_2_tpu_torch.models.gradicon import (
+        GradICON,
+        GradICONConfig,
+        _stage_spec,
+        default_gradicon_weights_path,
+        load_gradicon_checkpoint,
+    )
+    from oai_analysis_2_tpu_torch.models.synthetic import make_augmented_train_step, random_phantom
+    from oai_analysis_2_tpu_torch.utils import optim
+    from oai_analysis_2_tpu_torch.utils.checkpoint import flatten_tree
+
+    env = dict(GRADICON_WIDTH=str(REG_WIDTH), GRADICON_GRID=",".join(map(str, REG_GRID)), GRADICON_SUP_W="1.0",
+               GRADICON_SIM_W="0.1", GRADICON_LR="3e-4", GRADICON_POOL="8",
+               GRADICON_RESUME=str(default_gradicon_weights_path()))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    cfg = GradICONConfig(grid_shape=REG_GRID, stage_width=REG_WIDTH)
+    shipped = GradICON(cfg, device="cuda")
+    shipped.load_params(load_gradicon_checkpoint()[0])
+    shipped_eval = trainer.make_eval(cfg, "cuda")(shipped)
+    out = tmp_root / "gradicon.npz"
+    try:
+        cuda_conv.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        summary = trainer.main([str(TRAIN_STEPS), "2", str(out)], device="cuda")
+        wall = time.perf_counter() - t0
+        launches = route_counts(cuda_conv)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    losses = summary["losses"]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"GradICON training: non-finite losses {losses}")
+    # the eval's f32 forward (one direction, 3 stages x 10 convs) is the f32 route's only use
+    per_step = {k: v / TRAIN_STEPS for k, v in launches.items() if not k.endswith("f32")}
+    convs = unet_convs(_stage_spec(REG_WIDTH), (1,) + REG_GRID, "")
+    # 2 pairs x 2 directions x 3 stages; stage 0's input needs no gradient
+    want = expected_train_counts(cuda_conv, convs, torch.bfloat16, 12, 4)
+    want = {k: v for k, v in want.items() if not k.endswith("f32")}
+    if per_step != want or launches["fwd_f32"] != 30 or launches["dgrad_f32"] != 0:
+        raise AssertionError(f"GradICON training launches a step {per_step}, want {want}; f32 {launches}")
+    params, meta = load_gradicon_checkpoint(out)
+    trained = flatten_tree({f"stage{k}": p for k, p in enumerate(summary["model"].params_list())})
+    for key, v in flatten_tree({f"stage{k}": p for k, p in enumerate(params)}).items():
+        if not np.array_equal(v, trained[key]):
+            raise AssertionError(f"GradICON checkpoint {key} differs from the trained params")
+    if meta != {"stage_width": REG_WIDTH, "grid_shape": REG_GRID, "scales": cfg.scales}:
+        raise AssertionError(f"GradICON checkpoint metadata {meta}")
+    reloaded = GradICON(cfg, device="cuda")
+    rng = np.random.default_rng(5)
+    a = image_from_array(random_phantom(rng, REG_GRID), spacing=(0.7, 0.36, 0.36), device="cuda")
+    b = image_from_array(random_phantom(rng, REG_GRID), spacing=(0.7, 0.36, 0.36), device="cuda")
+    quality = {}
+    phi_ab, phi_ba = register_pair(a, b, model=reloaded, params=params, quality_out=quality)
+    if not bool(phi_ab.field.isfinite().all()) or phi_ab.field.grad_fn is not None:
+        raise AssertionError("register_pair with the trained weights: non-finite field or a graph")
+    # where a step's device time goes: one more step under torch.profiler
+    model = summary["model"]
+    step = make_augmented_train_step(model, optim.adam(list(model.parameters()), 1e-5), 1.0, 0.1)
+    pool = torch.as_tensor(np.stack([random_phantom(rng, REG_GRID) for _ in range(2)]), device="cuda")
+    u = torch.zeros((2, 6, 12, 12, 3), device="cuda")
+    batch = (pool, pool.flip(0), u, u, torch.zeros(2, device="cuda"))
+    profiled = profile_train_step(torch, lambda: step(*batch))
+    step_s = summary["step_seconds"]
+    return {
+        "steps": TRAIN_STEPS, "wall_s": wall,
+        "s_per_step_median_3_20": float(np.median(step_s[2:])), "first_steps_s": step_s[:2],
+        "max_memory_allocated_gb": peak_gb,
+        "launches_per_step": per_step, "eval_f32_launches": launches["fwd_f32"],
+        "losses_first_last": [losses[0], losses[-1]],
+        "eval_shipped_vox": shipped_eval, "eval_after_vox": summary["eval"][TRAIN_STEPS - 1],
+        "checkpoint": str(out), "register_pair_quality": {k: float(v) for k, v in quality.items()},
+        "profiled_step": profiled,
+    }
+
+
+def profile_train_step(torch, fn) -> dict:
+    """One training step under torch.profiler: wall, the device's busy time
+    and device ms by kernel family: the conv kernels (wmma, sm90, cin1, f32;
+    forward and data gradient share a kernel), everything else by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans, busy_us, by_name = device_spans(prof)
+    families = {"conv3d_wmma": "conv3d_bf16_kernel", "conv3d_sm90": "conv3d_sm90_kernel",
+                "conv3d_cin1": "conv3d_cin1_kernel", "conv3d_f32": "conv3d_f32_ring_kernel"}
+    fam_us = {fam: sum(us for n, us in by_name.items() if key in n) for fam, key in families.items()}
+    rest = {n: us for n, us in by_name.items() if not any(key in n for key in families.values())}
+    top = sorted(rest.items(), key=lambda kv: -kv[1])[:10]
+    return {"wall_s": wall, "device_events": len(spans), "device_busy_s": busy_us / 1e6,
+            "device_busy_share": busy_us / 1e6 / wall if spans else None,
+            "conv_kernel_device_ms": {k: v / 1e3 for k, v in fam_us.items()},
+            "other_device_ms": sum(rest.values()) / 1e3,
+            "top_other_device_ms": {n[:90]: us / 1e3 for n, us in top}}
+
+
+def segmentation_training(torch, cuda_conv, pipe, knee) -> dict:
+    """Phase 11 (d): `Segmenter3DInPatchClassWise.train` on the production
+    UNet in bf16 (the segmenter's serving dtype, phase 4's segmenter),
+    `BalancedPatchSampler` on the bench fixture knee with its two shell
+    masks as labels, patch 32x128x128, batch 2, Adam 1e-3, 5 steps on one
+    fixed batch; then `segment` of the knee builds no graph."""
+    import itertools
+
+    from oai_analysis_2_tpu_torch.bench import FULL, knee_and_atlas, shell_probmap
+    from oai_analysis_2_tpu_torch.engine.sampling import BalancedPatchSampler
+    from oai_analysis_2_tpu_torch.utils.checkpoint import export_params, flatten_tree
+
+    seg = pipe.segmenter
+    model = seg.model
+    knee_np, _ = knee_and_atlas(**FULL)
+    volume = (knee_np - knee_np.min()) / (knee_np.max() - knee_np.min())
+    labels = np.stack([shell_probmap(FULL["shape"], *FULL[t]) > 0.5 for t in ("fc", "tc")], axis=-1)
+    sampler = BalancedPatchSampler([volume], [labels.astype(np.float32)], TRAIN_TILE[1:], batch_size=2, seed=0)
+    batch = next(sampler)
+    if float(batch[1].sum()) <= 0:
+        raise AssertionError("segmentation training: the fixed batch holds no foreground")
+    init = export_params(model.init(torch.Generator().manual_seed(0)))
+    stamps = []
+    cuda_conv.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, opt, losses = seg.train(model, itertools.repeat(batch), SEG_TRAIN_STEPS, 1e-3, params=init,
+                                    log_every=1, callback=lambda i, loss: stamps.append(time.perf_counter()))
+    wall = time.perf_counter() - t0
+    launches = route_counts(cuda_conv)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    per_step = {k: v / SEG_TRAIN_STEPS for k, v in launches.items()}
+    convs = unet_convs(model.spec, TRAIN_TILE, "")
+    want = expected_train_counts(cuda_conv, convs, torch.bfloat16, 1, 1)
+    if per_step != want:
+        raise AssertionError(f"segmentation training launches a step {per_step}, want {want} (no enc0a dgrad)")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"segmentation training losses {losses}: want finite and falling")
+    moved = flatten_tree(params)
+    for key, v in flatten_tree(init).items():
+        p = dict(model.named_parameters())[key.replace("/", ".")]
+        if np.array_equal(moved[key], v) or p.grad is None or not bool(p.grad.isfinite().all()):
+            raise AssertionError(f"segmentation training: leaf {key} did not move or has no finite gradient")
+    fc, tc = seg.segment(knee, if_output_itk=False)
+    if fc.grad_fn is not None or tc.grad_fn is not None or fc.requires_grad:
+        raise AssertionError("segment after training built a graph")
+    return {"steps": SEG_TRAIN_STEPS, "wall_s": wall, "step_s": np.diff([t0] + stamps).tolist(),
+            "max_memory_allocated_gb": peak_gb, "launches_per_step": per_step, "losses": losses,
+            "leaves": len(moved), "trainable_parameters": sum(int(v.size) for v in moved.values())}
+
+
+def training(torch, cuda_conv, pipe, knee, kernels) -> dict:
+    """Phase 11: (a) the conv kernels under autograd at the trainers'
+    shapes, (b) small steps card against CPU, (c) full-width GradICON
+    training, (d) full-width segmentation training. Appends the training
+    rows to `kernels` with their launches from (b)-(d)."""
+    from pathlib import Path
+
+    from oai_analysis_2_tpu_torch.models.gradicon import _stage_spec
+
+    report = {}
+    t0 = time.perf_counter()
+    rows = []
+    # (a): the bf16 GradICON w24 finest stage (every route the GradICON
+    # trainer takes), one f32 stage conv, the production UNet's 14 convs
+    for name, shape, cin, cout in unet_convs(_stage_spec(REG_WIDTH), (1,) + REG_GRID, "gradicon.stage2."):
+        rows.append(("gradicon", conv_train_case(torch, cuda_conv, name, shape, cin, cout, torch.bfloat16, 10)))
+    (name, shape, cin, cout), = [c for c in unet_convs(_stage_spec(REG_WIDTH), (1,) + REG_GRID, "gradicon_f32.stage2.")
+                                 if c[0].endswith("enc1b")]
+    rows.append(("f32", conv_train_case(torch, cuda_conv, name, shape, cin, cout, torch.float32, 10)))
+    for name, shape, cin, cout in unet_convs(pipe.segmenter.model.spec, TRAIN_TILE, "unet."):
+        rows.append(("unet", conv_train_case(torch, cuda_conv, name, shape, cin, cout, torch.bfloat16, 10,
+                                             dgrad=not name.endswith("enc0a"))))
+    report["a_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report["b"] = small_train_runs(torch, cuda_conv)
+    report["b_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    root = Path(os.path.dirname(os.path.abspath(__file__))) / "build" / "train_smoke"
+    report["c"] = gradicon_training(torch, cuda_conv, root)
+    report["c_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report["d"] = segmentation_training(torch, cuda_conv, pipe, knee)
+    report["d_s"] = time.perf_counter() - t0
+    # launches: (c)'s 20 steps, (b)'s GradICON card steps, (d)'s 5 steps
+    counts = {"gradicon": {k: v * TRAIN_STEPS for k, v in report["c"]["launches_per_step"].items()},
+              "f32": report["b"]["gradicon"]["launches"],
+              "unet": {k: v * SEG_TRAIN_STEPS for k, v in report["d"]["launches_per_step"].items()}}
+    for path, (fwd, dg) in rows:
+        for row, key in ((fwd, "fwd"), (dg, "dgrad")):
+            if row is None:
+                continue
+            route = row["name"].split(":")[0][len("conv3d_"):]
+            row["launches"] = int(counts[path][f"{key}_{route}"])
+            kernels.append(row)
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -1548,6 +2023,25 @@ def main() -> int:
         if k["name"].endswith(":b16"):  # the batched path's own shapes
             k["launches"] = batch["run_batch"]["launches"][fam]
     log(f"phase knee batch ({batch['phase_s']:.1f} s, card {card}): {json.dumps(batch)}")
+
+    # ---- 11. training -------------------------------------------------------------
+    t0 = time.perf_counter()
+    n_before = len(kernels)
+    train = training(torch, cuda_conv, pipe, knee, kernels)
+    train["phase_s"] = time.perf_counter() - t0
+    per_step = {"train_gradicon_step": train["c"]["launches_per_step"],
+                "train_segment_step": train["d"]["launches_per_step"]}
+    for k in kernels[:n_before]:
+        route = k["name"].split(":")[0][len("conv3d_"):]
+        for path, counts in per_step.items():
+            k["launches_by_path"][path] = sum(v for key, v in counts.items() if key.endswith(f"_{route}"))
+    for k in kernels[n_before:]:
+        log(f"phase training: {k['name']} [{k['shape']}] errs {json.dumps(k.get('grad_errs', k['max_abs_err']))} "
+            f"kernel {k['ms']:.3f} ms, plain {k['plain_ms']:.3f} ms, library {k['library_ms']:.3f} ms, "
+            f"bound {k['bound_ms']:.3f} ms ({k['bound_by']}), launches {k['launches']}"
+            + (f", weight gradient {k['wgrad_ms']:.3f} ms (bound {k['wgrad_bound_ms']:.3f})"
+               if "wgrad_ms" in k else ""))
+    log(f"phase training ({train['phase_s']:.1f} s, card {card}): {json.dumps(train)}")
 
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -231,6 +231,14 @@ class Segmenter3DInPatchClassWise:
             return image.with_data(fc), image.with_data(tc)
         return fc, tc
 
+    def train(self, *args, **kwargs):
+        """`engine.training.train_segmentation(*args, **kwargs)`, as the JAX
+        package delegates (segmenter.py:357-362); pass `self.model` to
+        train the model that `segment` serves."""
+        from oai_analysis_2_tpu_torch.engine.training import train_segmentation
+
+        return train_segmentation(*args, **kwargs)
+
     def test(self, pairs, threshold: float = 0.5) -> dict:
         """Dice of the loaded model on (image, label) pairs (port of
         `oai_analysis_2_tpu/engine/segmenter.py:364-386`): each image runs

@@ -10,9 +10,10 @@ Instance optimization (`register_pair_instance`) needs no network
 gradient: it optimizes raw per-voxel displacement fields with Adam, and
 gradients flow only through the trilinear gathers, the LNCC box sums and
 the penalties. Fine-tuning runs the network once without gradient and then
-the same loop from its maps. Network training (`GradICON.loss` and its
-step, which need the conv's backward) is not ported yet (ROADMAP.md,
-Queue 1 item 5).
+the same loop from its maps. Network training (`GradICON.init`,
+`GradICON.loss`, `make_gradicon_train_step`) runs the stage UNets' convs
+under autograd (`ops.cuda_conv.conv3d_train`), in the model's
+`compute_dtype` (bf16 in the JAX training recipe, f32 for serving).
 """
 
 from __future__ import annotations
@@ -30,7 +31,8 @@ from torch import nn
 from oai_analysis_2_tpu_torch.core.device import resolve_device
 from oai_analysis_2_tpu_torch.models.unet3d import UNet3D, UNetSpec
 from oai_analysis_2_tpu_torch.ops.resample import _trilinear_gather, clip_ties
-from oai_analysis_2_tpu_torch.utils.checkpoint import carry_params, load_checkpoint
+from oai_analysis_2_tpu_torch.utils.checkpoint import carry_params, export_params, load_checkpoint
+from oai_analysis_2_tpu_torch.utils.optim import batch_step
 
 
 def _grid(axes, device) -> torch.Tensor:
@@ -239,23 +241,43 @@ class GradICONConfig:
 
 
 class GradICON(nn.Module):
-    """Multiscale two-step registration network, one f32 UNet per scale."""
+    """Multiscale two-step registration network, one UNet per scale, in
+    `compute_dtype` (f32 params and accumulation either way)."""
 
-    def __init__(self, config: GradICONConfig = GradICONConfig(), device=None):
+    def __init__(self, config: GradICONConfig = GradICONConfig(), compute_dtype=torch.float32, device=None):
         super().__init__()
         self.config = config
         dev = resolve_device(device)
         self.stages = nn.ModuleList(
-            UNet3D(_stage_spec(config.stage_width), torch.float32, dev) for _ in config.scales
+            UNet3D(_stage_spec(config.stage_width), compute_dtype, dev) for _ in config.scales
         )
         # the stage UNets start at zero (an identity map); `register_pair`
-        # refuses a model whose weights were never loaded
+        # refuses a model whose weights were never loaded or drawn
         self.loaded = False
 
     def load_params(self, params_list: List[dict]) -> None:
         """Carry a JAX stage-params list onto the stage UNets."""
         carry_params(self, {"stages": {str(i): p for i, p in enumerate(params_list)}})
         self.loaded = True
+
+    def params_list(self) -> List[dict]:
+        """The stage-params list as numpy trees (what `load_params` takes and
+        a checkpoint stores under `params/stage{i}`)."""
+        return [export_params(stage) for stage in self.stages]
+
+    @torch.no_grad()
+    def init(self, generator: Optional[torch.Generator] = None, zero_heads: bool = True) -> "GradICON":
+        """Draw every stage's UNet init from `generator` (port of
+        gradicon.py:295-309). zero_heads: zero the displacement heads, so
+        the untrained network is the identity transform."""
+        gen = torch.Generator().manual_seed(0) if generator is None else generator
+        for stage in self.stages:
+            stage.init(gen)
+            if zero_heads:
+                stage.head.kernel.zero_()
+                stage.head.bias.zero_()
+        self.loaded = True
+        return self
 
     def _stage_increment(self, stage: UNet3D, a_s, b_warp_s):
         net_in = torch.stack([a_s, b_warp_s], dim=-1)[None]
@@ -277,6 +299,34 @@ class GradICON(nn.Module):
 
     def both_maps(self, a: torch.Tensor, b: torch.Tensor):
         return self.forward_map(a, b), self.forward_map(b, a)
+
+    def loss(self, a: torch.Tensor, b: torch.Tensor):
+        """(sim + lambda_reg * reg, (sim, reg, phi_ab, phi_ba)) for one pair
+        of (D, H, W) volumes (gradicon.py:341-347)."""
+        cfg = self.config
+        sim_fn = make_similarity(cfg.similarity, cfg.lncc_window, cfg.mse_weight)
+        phi_ab, phi_ba = self.both_maps(a, b)
+        sim = sim_fn(a, warp(b, phi_ab)) + sim_fn(b, warp(a, phi_ba))
+        reg = gradicon_penalty(phi_ab, phi_ba)
+        return sim + cfg.lambda_reg * reg, (sim, reg, phi_ab, phi_ba)
+
+
+def make_gradicon_train_step(model: GradICON, optimizer):
+    """A GradICON training step over a batch of pairs (port of
+    gradicon.py:390-414): `step(a, b)` with a, b (N, D, H, W) runs one
+    optimizer update of the mean loss over the pairs and returns it (0-d).
+    The pairs run one after another (JAX's vmap), each backward adding its
+    share, loss / N, to the gradients. `optimizer` is a `utils.optim`
+    optimizer over the model's parameters, whose gradients this turns on."""
+    def one(a1, b1):
+        total, _ = model.loss(a1, b1)
+        return total, ()
+
+    def step(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return batch_step(optimizer, one, (a, b))[0]
+
+    optimizer.require_grad()
+    return step
 
 
 def default_gradicon_weights_path() -> Path:

@@ -1,8 +1,11 @@
-"""Synthetic knee phantom (copy of `random_phantom`,
-`oai_analysis_2_tpu/models/synthetic.py:34-99`, numpy only).
+"""Synthetic knee phantoms and the GradICON training step on them (port of
+`oai_analysis_2_tpu/models/synthetic.py`).
 
-The offline atlas is `random_phantom(np.random.default_rng(60), shape)`,
-so the same generator gives the JAX package's atlas voxel for voxel.
+`random_phantom` (`:34-99`), `random_lowres_field` and `make_phantom_pool`
+(`:102-125`) are numpy copies: the same generator gives the JAX package's
+arrays bit for bit (the offline atlas is
+`random_phantom(np.random.default_rng(60), shape)`). `apply_lowres_warp`
+and `make_augmented_train_step` (`:128-200`) are PyTorch.
 """
 
 from __future__ import annotations
@@ -10,6 +13,10 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+import torch
+
+from oai_analysis_2_tpu_torch.models.gradicon import _index_scale, compose, identity_map, resize_field, warp
+from oai_analysis_2_tpu_torch.utils.optim import batch_step
 
 
 def random_phantom(
@@ -78,3 +85,67 @@ def random_phantom(
     )
     noise = rng.uniform(0.0, rng.uniform(0.12, 0.28), shape_zyx)
     return np.clip(anatomy + noise + bias, 0.0, 1.0).astype(np.float32)
+
+
+def random_lowres_field(
+    rng: np.random.Generator,
+    lowres_shape: Tuple[int, int, int] = (6, 12, 12),
+    amplitude: float = 0.035,
+    translation: float = 0.03,
+) -> np.ndarray:
+    """A random smooth displacement field in normalized [0, 1]-coordinate
+    units at low resolution (lowres_shape + (3,), f32): a random amplitude
+    in [0, amplitude) times unit normals, plus one random translation."""
+    amp = rng.uniform(0.0, amplitude)
+    field = rng.normal(0.0, 1.0, lowres_shape + (3,)).astype(np.float32) * amp
+    field += rng.uniform(-translation, translation, (3,)).astype(np.float32)
+    return field
+
+
+def make_phantom_pool(n: int, shape_zyx: Tuple[int, int, int] = (48, 96, 96), seed: int = 0) -> np.ndarray:
+    """(n, D, H, W) stack of independent phantoms."""
+    rng = np.random.default_rng(seed)
+    return np.stack([random_phantom(rng, shape_zyx) for _ in range(n)])
+
+
+def apply_lowres_warp(volume: torch.Tensor, u_lowres: torch.Tensor) -> torch.Tensor:
+    """Warp a (D, H, W) volume by a low-res normalized displacement field,
+    upsampled trilinearly onto the volume's grid."""
+    ident = identity_map(volume.shape, volume.device)
+    return warp(volume, ident + resize_field(u_lowres, volume.shape))
+
+
+def make_augmented_train_step(model, optimizer, sup_weight: float = 0.0, sim_weight: float = 1.0):
+    """The GradICON train step with warp augmentation and known-correspondence
+    supervision (port of synthetic.py:136-200).
+
+    `step(vol_a, vol_b, u_a, u_b, same)`: vol_* (N, D, H, W) phantoms, u_*
+    (N, *lowres, 3) normalized low-res fields, same (N,) f32, 1 where vol_a
+    and vol_b are one phantom. Each volume is warped by its field; the loss
+    of a pair is sim_weight * sim + lambda_reg * reg, plus for same pairs
+    sup_weight times the composition residual (id + u_b) o phi_AB - (id +
+    u_a), and its mirror, in voxels squared. One optimizer update of the
+    batch mean; returns (loss, sim, reg, sup) means, sup gated by `same`.
+    `optimizer` is a `utils.optim` optimizer over the model's parameters,
+    whose gradients this turns on."""
+    lambda_reg = model.config.lambda_reg
+
+    def one(va, vb, ua_low, ub_low, s):
+        shape = tuple(va.shape)
+        ident = identity_map(shape, va.device)
+        ua = ident + resize_field(ua_low, shape)
+        ub = ident + resize_field(ub_low, shape)
+        a, b = warp(va, ua), warp(vb, ub)
+        _, (sim, reg, phi_ab, phi_ba) = model.loss(a, b)
+        scale = _index_scale(shape, va.device)
+        res_ab = (compose(ub, phi_ab) - ua) * scale
+        res_ba = (compose(ua, phi_ba) - ub) * scale
+        sup = 0.5 * (torch.mean(torch.sum(res_ab * res_ab, dim=-1)) + torch.mean(torch.sum(res_ba * res_ba, dim=-1)))
+        loss = sim_weight * sim + lambda_reg * reg + s * sup_weight * sup
+        return loss, (sim, reg, s * sup)
+
+    def step(vol_a, vol_b, u_a, u_b, same):
+        return tuple(batch_step(optimizer, one, (vol_a, vol_b, u_a, u_b, same)))
+
+    optimizer.require_grad()
+    return step

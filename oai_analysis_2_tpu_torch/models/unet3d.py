@@ -1,9 +1,14 @@
 """3D UNet family (port of `oai_analysis_2_tpu/models/unet3d.py`).
 
-Inference only. Activations are NDHWC and conv kernels DHWIO, as in the
-JAX package, and parameters are named after the JAX parameter tree's paths
-(`enc0a.kernel`, `dec1up.bias`, `head.kernel`), so a JAX tree carries onto
-the module one to one (`utils.checkpoint.carry_params`).
+Activations are NDHWC and conv kernels DHWIO, as in the JAX package, and
+parameters are named after the JAX parameter tree's paths (`enc0a.kernel`,
+`dec1up.bias`, `head.kernel`, `enc0a.bn.mean`), so a JAX tree carries onto
+the module one to one (`utils.checkpoint.carry_params`) and back
+(`utils.checkpoint.export_params`). Every leaf of the JAX tree is a
+parameter here, the batch-norm statistics too (JAX's `make_train_step`
+differentiates the whole tree, so Adam trains them as well). Parameters
+are created with `requires_grad=False`; a train step turns it on for the
+model it trains, and every serving forward runs under `torch.no_grad()`.
 
 Routing, as on the TPU's opt-in Pallas path but for every layer: each
 3x3x3 conv goes through the hand-written kernel (`ops.cuda_conv.conv3d`,
@@ -13,19 +18,28 @@ batch-norm spec (inference statistics, JAX `unet3d.py:242-279`) puts BN
 between a block's conv and its ReLU: its convs return the f32 accumulator
 plus bias (`relu=False, out_dtype=torch.float32`), BN and ReLU run in f32,
 then one cast to the compute dtype; the upconv gets BN before its ReLU too.
+
+Training: `init(generator)` draws JAX's init (`unet3d.py:143-167`,
+`:365-406`); whenever grad is enabled and the input or a conv's leaves
+need a gradient, the 3x3x3 convs go through
+`ops.cuda_conv.conv3d_train` (the same kernels under autograd), and
+`forward(x, train=True)` on a BN spec normalizes with the batch's
+statistics and also returns the updated running statistics (JAX
+`_bn_train`, `apply(train=True)`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+import math
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from oai_analysis_2_tpu_torch.core.device import resolve_device
-from oai_analysis_2_tpu_torch.ops.cuda_conv import conv3d
+from oai_analysis_2_tpu_torch.ops.cuda_conv import conv3d, conv3d_train
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,21 +165,34 @@ def make_threshold_params(spec: UNetSpec, gain: float = 24.0, threshold: float =
 
 
 class _BatchNorm(nn.Module):
-    """Inference batch norm of one block: the JAX tree's `bn` leaves, the
-    affine pair as parameters and the running statistics as buffers."""
+    """Batch norm of one block: the JAX tree's `bn` leaves (scale, bias and
+    the running mean and var), all parameters."""
 
     def __init__(self, channels: int, device):
         super().__init__()
         self.scale = nn.Parameter(torch.ones(channels, device=device), requires_grad=False)
         self.bias = nn.Parameter(torch.zeros(channels, device=device), requires_grad=False)
-        self.register_buffer("mean", torch.zeros(channels, device=device))
-        self.register_buffer("var", torch.ones(channels, device=device))
+        self.mean = nn.Parameter(torch.zeros(channels, device=device), requires_grad=False)
+        self.var = nn.Parameter(torch.ones(channels, device=device), requires_grad=False)
 
     def forward(self, y: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
         """(y - mean) * (rsqrt(var + eps) * scale) + bias, in f32 (JAX
         `_bn_inference`)."""
         inv = torch.rsqrt(self.var.to(torch.float32) + eps)
         return (y - self.mean) * (inv * self.scale) + self.bias
+
+    def train_forward(self, y: torch.Tensor, eps: float = 1e-5, momentum: float = 0.1):
+        """(normalized y, {"mean", "var"}) with the batch's statistics (JAX
+        `_bn_train`): the biased variance normalizes, the unbiased one
+        enters the running statistics (returned detached)."""
+        mean = y.mean(dim=(0, 1, 2, 3))
+        var = y.var(dim=(0, 1, 2, 3), unbiased=False)
+        out = (y - mean) * (torch.rsqrt(var + eps) * self.scale) + self.bias
+        n = y.numel() // y.shape[-1]
+        unbiased = var * n / max(n - 1, 1)
+        stats = {"mean": (1 - momentum) * self.mean + momentum * mean,
+                 "var": (1 - momentum) * self.var + momentum * unbiased}
+        return out, {k: v.detach() for k, v in stats.items()}
 
 
 class _Block(nn.Module):
@@ -215,8 +242,8 @@ def upconv2x(x: torch.Tensor, blk: _Block) -> torch.Tensor:
 
 
 class UNet3D(nn.Module):
-    """NDHWC -> NDHWC f32 logits. Parameters start at zero; carry weights
-    with `utils.checkpoint.carry_params`."""
+    """NDHWC -> NDHWC f32 logits. Parameters start at zero; draw JAX's init
+    with `init` or carry weights with `utils.checkpoint.carry_params`."""
 
     def __init__(self, spec: UNetSpec, compute_dtype=torch.float32, device=None):
         super().__init__()
@@ -228,40 +255,75 @@ class UNet3D(nn.Module):
             bn = spec.batchnorm and not name.startswith("head")
             self.add_module(name, _Block(leaves["kernel"], leaves.get("bias"), dev, batchnorm=bn))
 
-    def _conv(self, x: torch.Tensor, name: str) -> torch.Tensor:
+    @torch.no_grad()
+    def init(self, generator: Optional[torch.Generator] = None) -> "UNet3D":
+        """JAX's init (`unet3d.py:143-167`, `:365-406`): Xavier-normal
+        kernels, std sqrt(2 / (fan_in + fan_out)) with fans k^3 * Cin and
+        k^3 * Cout (the upconv's cur * 8 and cu * 8), zero biases, BN scale
+        1, bias 0, mean 0, var 1. Draws come from `generator` (None: a CPU
+        generator seeded with 0) in the JAX tree's block order, on the
+        generator's device; the same distribution as JAX's, not the same
+        values."""
+        gen = torch.Generator().manual_seed(0) if generator is None else generator
+        for name, leaves in param_shapes(self.spec).items():
+            blk = getattr(self, name)
+            shape = leaves["kernel"]
+            taps = shape[0] * shape[1] * shape[2]
+            std = math.sqrt(2.0 / (taps * shape[3] + taps * shape[4]))
+            blk.kernel.copy_(torch.randn(shape, generator=gen, device=gen.device) * std)
+            if blk.bias is not None:
+                blk.bias.zero_()
+            if blk.bn is not None:
+                for leaf, value in (("scale", 1.0), ("bias", 0.0), ("mean", 0.0), ("var", 1.0)):
+                    getattr(blk.bn, leaf).fill_(value)
+        return self
+
+    def _norm_relu(self, y: torch.Tensor, blk: _Block, name: str, stats: Optional[dict]) -> torch.Tensor:
+        if blk.bn is None:
+            return torch.relu(y)
+        if stats is None:
+            return torch.relu(blk.bn(y))
+        y, stats[name] = blk.bn.train_forward(y)
+        return torch.relu(y)
+
+    def _conv(self, x: torch.Tensor, name: str, stats: Optional[dict]) -> torch.Tensor:
         blk = getattr(self, name)
         kernel = blk.kernel.to(x.dtype).contiguous()
+        # a graph only where grad is enabled and something needs a gradient
+        needs = x.requires_grad or kernel.requires_grad or (blk.bias is not None and blk.bias.requires_grad)
+        conv = conv3d_train if torch.is_grad_enabled() and needs else conv3d
         if blk.bn is None:
-            return conv3d(x, kernel, blk.bias, relu=True, out_dtype=self.compute_dtype)
-        y = conv3d(x, kernel, blk.bias, relu=False, out_dtype=torch.float32)
-        return torch.relu(blk.bn(y)).to(self.compute_dtype)
+            return conv(x, kernel, blk.bias, relu=True, out_dtype=self.compute_dtype)
+        y = conv(x, kernel, blk.bias, relu=False, out_dtype=torch.float32)
+        return self._norm_relu(y, blk, name, stats).to(self.compute_dtype)
 
-    def _up(self, x: torch.Tensor, name: str) -> torch.Tensor:
-        blk = getattr(self, name)
-        y = upconv2x(x, blk)
-        return torch.relu(y if blk.bn is None else blk.bn(y))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False):
+        """x (N, D, H, W, Cin) -> f32 logits (N, D, H, W, n_classes); with
+        `train` on a BN spec, (logits, {block: {"mean", "var"}}) with the
+        batch's statistics (JAX `apply(train=True)`)."""
         spec = self.spec
         cd = self.compute_dtype
+        stats = {} if train and spec.batchnorm else None
         x = x.to(cd).contiguous()
         skips = []
         for li in range(len(spec.enc)):
-            x = self._conv(x, f"enc{li}a")
-            x = self._conv(x, f"enc{li}b")
+            x = self._conv(x, f"enc{li}a", stats)
+            x = self._conv(x, f"enc{li}b", stats)
             if li < len(spec.enc) - 1:
                 skips.append(x)
                 x = maxpool2x(x).contiguous()
         for li in range(len(spec.dec)):
-            up = self._up(x, f"dec{li}up")
+            name = f"dec{li}up"
+            up = self._norm_relu(upconv2x(x, getattr(self, name)), getattr(self, name), name, stats)
             skip = skips[len(skips) - 1 - li]
             x = torch.cat([up.to(cd), skip.to(cd)], dim=-1)
-            x = self._conv(x, f"dec{li}a")
-            x = self._conv(x, f"dec{li}b")
+            x = self._conv(x, f"dec{li}a", stats)
+            x = self._conv(x, f"dec{li}b", stats)
         if spec.classwise_heads:
             logits = torch.cat(
                 [_pointwise(x, getattr(self, f"head{c}")) for c in range(spec.n_classes)], dim=-1
             )
         else:
             logits = _pointwise(x, self.head)
-        return logits.to(torch.float32)
+        logits = logits.to(torch.float32)
+        return (logits, stats) if stats is not None else logits

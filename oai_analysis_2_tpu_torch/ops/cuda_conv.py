@@ -34,6 +34,16 @@ to measurements that time a route at another's shape (the wmma build at
 enc0a's), the sm90 kernel's loads alone, the cin1 kernel's stores alone or
 its general load and store paths, or the f32 build that the "f32" route replaced (route "f32_was", the CUDA-core
 build of `csrc/conv3d.cu`).
+
+Training (`conv3d_train`, `Conv3dFn`): the forward is `conv3d` itself (the
+same route, kernel and epilogue); the data gradient is `conv3d` again, of
+the ReLU-masked output gradient with the kernel flipped in z, y and x and
+Cin <-> Cout swapped, so it takes whatever route the swapped channels pick
+and is counted apart as well (`conv3d.launches_dgrad` and
+`conv3d.launches_dgrad_<route>`). The weight gradient, which the JAX
+package leaves to XLA, is a library call on the card
+(`torch.nn.grad.conv3d_weight`, cuDNN, TF32 off for f32 operands) and 27
+shifted products on the CPU (`conv3d_weight_grad_reference`).
 """
 
 from __future__ import annotations
@@ -258,6 +268,86 @@ def launch(
     return out
 
 
+def dgrad_kernel(kernel: torch.Tensor) -> torch.Tensor:
+    """DHWIO (3, 3, 3, Cin, Cout) -> (3, 3, 3, Cout, Cin): the kernel whose
+    SAME conv of an output gradient is the input gradient (flipped in z, y
+    and x, input and output channels swapped)."""
+    return kernel.flip(0, 1, 2).transpose(3, 4).contiguous()
+
+
+def conv3d_weight_grad_reference(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Plain weight gradient of the SAME 3x3x3 conv: x (B, D, H, W, Cin) and
+    the output gradient g (B, D, H, W, Cout) -> (3, 3, 3, Cin, Cout) f32,
+    27 shifted (Cin, voxels) @ (voxels, Cout) products of the zero-padded
+    input in f32."""
+    b, d, h, w, cin = x.shape
+    xp = F.pad(x.to(torch.float32), (0, 0, 1, 1, 1, 1, 1, 1))
+    gf = g.to(torch.float32).reshape(-1, g.shape[-1])
+    taps = [xp[:, dz : dz + d, dy : dy + h, dx : dx + w, :].reshape(-1, cin).t() @ gf
+            for dz in range(3) for dy in range(3) for dx in range(3)]
+    return torch.stack(taps).reshape(3, 3, 3, cin, g.shape[-1])
+
+
+def conv3d_weight_grad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The weight gradient in x's dtype: the plain version for CPU tensors,
+    on the card one cuDNN weight-gradient call on the channels-last views
+    (TF32 off for f32 operands, so the f32 route's gradient stays f32)."""
+    if x.device.type == "cpu":
+        return conv3d_weight_grad_reference(x, g).to(x.dtype)
+    cin, cout = x.shape[-1], g.shape[-1]
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        gw = torch.nn.grad.conv3d_weight(x.permute(0, 4, 1, 2, 3), (cout, cin, 3, 3, 3),
+                                         g.to(x.dtype).permute(0, 4, 1, 2, 3), padding=1)
+    return gw.permute(2, 3, 4, 1, 0).contiguous()
+
+
+class Conv3dFn(torch.autograd.Function):
+    """`conv3d` under autograd. Forward: `conv3d` (saves x, the kernel and
+    the output; under the fused ReLU the gradient mask is `out > 0`).
+    Backward: the input gradient through `conv3d` with `dgrad_kernel`
+    (skipped when x needs no gradient, as for a UNet's input image), the
+    weight gradient through `conv3d_weight_grad`, the bias gradient the
+    masked output gradient summed over voxels in f32."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, bias, relu, out_dtype):
+        out = conv3d(x, kernel, bias, relu=relu, out_dtype=out_dtype)
+        ctx.relu = relu
+        ctx.has_bias = bias is not None
+        ctx.save_for_backward(x, kernel, out if relu else None)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, kernel, out = ctx.saved_tensors
+        g = dy * (out > 0) if ctx.relu else dy
+        g = g.contiguous()
+        dx = dk = db = None
+        if ctx.needs_input_grad[0]:
+            dx = conv3d(g.to(x.dtype), dgrad_kernel(kernel), None, relu=False, out_dtype=x.dtype)
+            if x.device.type == "cuda":
+                route = conv3d_route(kernel.shape[4], kernel.shape[3], x.dtype)
+                conv3d.launches_dgrad += 1
+                setattr(conv3d, f"launches_dgrad_{route}", getattr(conv3d, f"launches_dgrad_{route}") + 1)
+        if ctx.needs_input_grad[1]:
+            dk = conv3d_weight_grad(x, g)
+        if ctx.has_bias and ctx.needs_input_grad[2]:
+            db = g.to(torch.float32).sum(dim=(0, 1, 2, 3))
+        return dx, dk, db, None, None
+
+
+def conv3d_train(
+    x: torch.Tensor,
+    kernel: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    *,
+    relu: bool = False,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """`conv3d` with gradients for x, the kernel and the bias (`Conv3dFn`)."""
+    return Conv3dFn.apply(x, kernel, bias, relu, x.dtype if out_dtype is None else out_dtype)
+
+
 def _error_text(err: int) -> str:
     if err == -1:
         return "no cuTensorMapEncodeTiled in libcuda"
@@ -269,10 +359,13 @@ def _error_text(err: int) -> str:
 
 
 def reset_launches() -> None:
-    """Zero the total and every route's launch count."""
+    """Zero the total, every route's launch count and the data-gradient
+    counts (a data gradient counts in the total and its route's count too)."""
     conv3d.launches = 0
+    conv3d.launches_dgrad = 0
     for route in ROUTES:
         setattr(conv3d, f"launches_{route}", 0)
+        setattr(conv3d, f"launches_dgrad_{route}", 0)
 
 
 reset_launches()

@@ -5,7 +5,7 @@ Format (the JAX package's, `oai_analysis_2_tpu/utils/checkpoint.py:34-97`):
 one `.npz` holding the parameter tree flattened to `a/b/c` keys plus a JSON
 string under `__meta__` with the scalar metadata (epoch, best score, the
 GradICON architecture). Trees here stay numpy; `carry_params` moves one
-onto a module's parameters and buffers.
+onto a module's parameters and buffers, `export_params` takes it back.
 
 The reference ships its segmentation weights as a torch `.pth.tar`
 (`model_state_dict` with `ec*` / `dc*` keys, NCDHW modules).
@@ -82,6 +82,12 @@ def save_checkpoint(state: dict, file) -> Path:
     return file
 
 
+def _leaves(module: nn.Module) -> Dict[str, torch.Tensor]:
+    own = dict(module.named_parameters())
+    own.update(module.named_buffers())
+    return own
+
+
 def carry_params(module: nn.Module, tree: dict) -> None:
     """Copy a JAX-layout parameter tree (nested dicts of numpy arrays, as the
     JAX package's `init`/checkpoints produce) onto `module`'s parameters and
@@ -90,12 +96,10 @@ def carry_params(module: nn.Module, tree: dict) -> None:
     The port's modules name their parameters after the tree's paths
     (`enc0a.kernel`, `stages.1.dec0up.bias`, ...) and keep the JAX layouts
     (DHWIO kernels); a batch-norm subtree (`enc0a/bn/{scale, bias, mean,
-    var}`) lands on the block's `bn` module, its statistics as buffers. So
-    the carry is a checked one-to-one copy: a missing or extra leaf, or a
-    shape mismatch, raises."""
+    var}`) lands on the block's `bn` module. So the carry is a checked
+    one-to-one copy: a missing or extra leaf, or a shape mismatch, raises."""
     flat = {k.replace("/", "."): v for k, v in flatten_tree(tree).items()}
-    own = dict(module.named_parameters())
-    own.update(module.named_buffers())
+    own = _leaves(module)
     if set(flat) != set(own):
         raise KeyError(
             f"parameter trees differ: missing {sorted(set(own) - set(flat))}, "
@@ -107,6 +111,14 @@ def carry_params(module: nn.Module, tree: dict) -> None:
             if tuple(v.shape) != tuple(p.shape):
                 raise ValueError(f"{name}: shape {tuple(v.shape)} != {tuple(p.shape)}")
             p.copy_(v.to(p.dtype))
+
+
+def export_params(module: nn.Module) -> dict:
+    """The exact inverse of `carry_params`: `module`'s parameters and buffers
+    as a tree of numpy arrays under the JAX tree's names, so what the port
+    trains saves in the JAX package's checkpoint format."""
+    flat = {name.replace(".", "/"): t.detach().cpu().numpy().copy() for name, t in _leaves(module).items()}
+    return unflatten_tree(flat)
 
 
 # -- the reference's torch checkpoints ------------------------------------------

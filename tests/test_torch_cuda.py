@@ -377,3 +377,91 @@ def test_distance_was_build_agrees_uncounted(card):
     torch.cuda.synchronize()
     torch.testing.assert_close(got.sqrt(), want.sqrt(), atol=1e-3, rtol=1e-4)
     assert cuda_kernels.point_triangle_min_d2.launches == before
+
+
+# the conv under autograd (`Conv3dFn`): (x shape, Cout, dtype) on every
+# route a trainer's forward or data gradient takes: wmma both ways (ragged
+# at B = 2; the GradICON enc0a's 2 -> 24, whose data gradient is 24 -> 2),
+# the UNet's enc0b (sm90 forward 32 -> 64, wmma data gradient 64 -> 32),
+# sm90 both ways at B = 2, cin1 forward (Cin = 1: no data gradient), f32
+# both ways
+TRAIN_CASES = [
+    ((2, 4, 6, 8, 5), 7, torch.bfloat16),
+    ((1, 4, 8, 16, 2), 24, torch.bfloat16),
+    ((2, 4, 8, 32, 32), 64, torch.bfloat16),
+    ((2, 4, 8, 32, 64), 64, torch.bfloat16),
+    ((2, 4, 8, 32, 1), 32, torch.bfloat16),
+    ((2, 4, 6, 8, 5), 7, torch.float32),
+    ((1, 4, 8, 16, 24), 48, torch.float32),
+]
+
+
+@pytest.mark.parametrize("shape,cout,dtype", TRAIN_CASES)
+@pytest.mark.parametrize("use_bias,relu", [(True, True), (False, False)])
+def test_conv_train_matches_plain_on_card(card, shape, cout, dtype, use_bias, relu):
+    """Forward, dx, dW and db against autograd through the plain version
+    (bf16 2e-2, f32 1e-4; dW and db against their largest element); the
+    data gradient launches the kernel of its swapped channels' route and
+    counts apart; an input without requires_grad takes no data gradient."""
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    rng = np.random.default_rng(31)
+    cin = shape[-1]
+    x = torch.tensor(rng.normal(0, 1, shape).astype(np.float32), device=card).to(dtype)
+    k = torch.tensor(rng.normal(0, 1, (3, 3, 3, cin, cout)).astype(np.float32) / np.sqrt(27 * cin),
+                     device=card).to(dtype)
+    b = torch.tensor(rng.normal(0, 0.5, (cout,)).astype(np.float32), device=card) if use_bias else None
+    pre = cuda_conv.conv3d_reference(x, k, b, out_dtype=torch.float32)
+    # no output gradient within 1e-3 of the ReLU kink, where the two sums may pick another side
+    dy = (torch.tensor(rng.normal(0, 1, shape[:-1] + (cout,)).astype(np.float32), device=card)
+          * (pre.abs() > 1e-3)).to(dtype)
+    need_dx = cin > 1
+
+    def grads(fn):
+        leaves = [x.clone().requires_grad_(need_dx), k.clone().requires_grad_()]
+        if use_bias:
+            leaves.append(b.clone().requires_grad_())
+        out = fn(leaves[0], leaves[1], leaves[2] if use_bias else None, relu=relu, out_dtype=dtype)
+        return [out.detach()] + list(torch.autograd.grad(out, leaves if need_dx else leaves[1:], dy))
+
+    cuda_conv.reset_launches()
+    got = grads(cuda_conv.conv3d_train)
+    torch.cuda.synchronize()
+    droute = cuda_conv.conv3d_route(cout, cin, dtype)
+    assert cuda_conv.conv3d.launches == 1 + need_dx
+    assert cuda_conv.conv3d.launches_dgrad == getattr(cuda_conv.conv3d, f"launches_dgrad_{droute}") == need_dx
+    want = grads(cuda_conv.conv3d_reference)
+    assert cuda_conv.conv3d.launches == 1 + need_dx  # the plain version launches nothing
+    torch.testing.assert_close(got[0].float(), want[0].float(), atol=tol, rtol=tol)
+    if need_dx:
+        torch.testing.assert_close(got[1].float(), want[1].float(), atol=tol, rtol=tol)
+    for g, w in zip(got[1 + need_dx:], want[1 + need_dx:]):
+        assert g.dtype == w.dtype and g.is_cuda
+        scale = float(w.float().abs().max())
+        torch.testing.assert_close(g.float() / scale, w.float() / scale, atol=tol, rtol=tol)
+
+
+def test_unet_train_step_card_matches_cpu(card):
+    """One f32 Adam step of `make_train_step` on UNet_light4 (f32 route
+    forward and data gradient) on the card and on the CPU from the same
+    params: the loss within 1e-5 relative, gradients within 1e-4 of each
+    leaf's largest."""
+    from oai_analysis_2_tpu_torch.engine.training import make_train_step
+    from oai_analysis_2_tpu_torch.models.unet3d import NETWORK_SPECS, UNet3D
+    from oai_analysis_2_tpu_torch.utils import optim
+    from oai_analysis_2_tpu_torch.utils.checkpoint import carry_params, export_params
+
+    spec = NETWORK_SPECS["UNet_light4"].replace(bias=True)
+    params = export_params(UNet3D(spec, device="cpu").init(torch.Generator().manual_seed(4)))
+    rng = np.random.default_rng(4)
+    images = rng.uniform(0, 1, (2, 8, 16, 16, 1)).astype(np.float32)
+    labels = (rng.uniform(0, 1, (2, 8, 16, 16, 2)) > 0.6).astype(np.float32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = UNet3D(spec, device=dev)
+        carry_params(model, params)
+        loss = make_train_step(model, optim.adam(list(model.parameters()), 1e-3))(images, labels)
+        out[dev] = (float(loss), {n: p.grad.cpu() for n, p in model.named_parameters()})
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-5)
+    for n, g in out["cpu"][1].items():
+        scale = float(g.abs().max())
+        torch.testing.assert_close(out["cuda"][1][n] / scale, g / scale, atol=1e-4, rtol=1e-4)
