@@ -10,21 +10,23 @@ Phases, each fatal on failure (exit code 1, no result line):
 2. kernels: hold each kernel against its plain PyTorch version on the card at
    the shapes the main path gives it, and time the kernel, the plain version
    and (where one exists) one PyTorch library call computing the same
-   function, with CUDA events. The conv has three routes
+   function, with CUDA events. The conv routes
    (`cuda_conv.conv3d_route`): the TMA + wgmma kernel `sm90` at the segment
    UNet's three full-resolution shapes and one shape per lower level, the
-   mma.sync kernel `cin1` at enc0a (Cin = 1), the f32 kernel at each of the
-   ten convs of the finest GradICON stage (from the stage spec, at their
-   grid sizes). A bf16 conv is checked with f32 output and with the bf16
+   mma.sync kernel `cin1` at enc0a (Cin = 1), the narrow TMA + wgmma kernel
+   `sm90n` at the segmentation trainer's enc0b data gradient (64 -> 32 at
+   2x32x128x128; its other shapes are phase 11's), the f32 kernel at each
+   of the ten convs of the finest GradICON stage (from the stage spec, at
+   their grid sizes); the wmma build serves only Cin % 8 != 0. A bf16 conv is checked with f32 output and with the bf16
    output the main path takes (each its own build of the kernel); enc0b
    (sm90) and enc0a (cin1) are checked once more on the batch-norm UNet's
    route, without ReLU and with f32 output (rows named `...:bn`), and
    enc0b, dec2a, enc1b, enc3b (sm90) and enc0a (cin1) once more at the
    knee batch's shapes (rows named `...:b16`: 16 tiles of 32x128x128 a
    step, the training tiling that two knees take). At each unbatched
-   sm90 and cin1 shape it also times the wmma build (which ran those convs
-   before) and the sm90 kernel's loads-only or the cin1 kernel's
-   stores-only and general-path builds; at each f32 shape and at the
+   sm90, sm90n and cin1 shape it also times the wmma build (which ran those
+   convs before) and the sm90 or sm90n kernel's loads-only or the cin1
+   kernel's stores-only and general-path builds; at each f32 shape and at the
    distance shape, the build that the kernel replaced (`was_ms`, uncounted
    launches);
 3. small knee: the whole pipeline on a 48x96x96 knee on the card and on the
@@ -35,7 +37,7 @@ Phases, each fatal on failure (exit code 1, no result line):
    network mode. The knee runs twice; the launch counts are zeroed just
    before the second run and read just after it, and that run is reported:
    the sm90 route must have taken 13 bf16 conv launches per cin1 (enc0a)
-   launch, and the wmma build none. Then the thickness stage runs once
+   launch, and the wmma build and the sm90n kernel none. Then the thickness stage runs once
    more, timed per substage, and the knee once more under torch.profiler
    (the device's busy share and its milliseconds by kernel), which must
    show the enc0a, f32 conv and distance time in their kernels and none in
@@ -116,15 +118,28 @@ Phases, each fatal on failure (exit code 1, no result line):
    `get_thickness_meshes(method="tets")` on the card with an FC median of
    0.2-10 mm and its thickness within 1e-3 mm of the CPU's plain distance
    at every 100th vertex of each surface (all of them would take minutes
-   on the host).
+   on the host);
+11. training: (a) `cuda_conv.Conv3dFn` (the conv kernels under autograd)
+   against autograd through the plain conv at every trainer shape (the
+   w24 GradICON finest stage's ten convs in bf16, one f32 stage conv, the
+   production UNet's 14 convs at 2x32x128x128): forward, data gradient,
+   weight and bias gradients, with times (the sm90n rows add the wmma
+   build's and the loads-only build's); (b) 3 f32 steps of the GradICON
+   and UNet train steps on the card against the CPU; (c) 20 steps of the
+   w24 GradICON recipe: launches a step exactly as `conv3d_route` gives
+   them (12 sm90 + 12 wmma + 96 sm90n forward, 116 sm90n data gradients),
+   the checkpoint reloaded bit-equal, one step under torch.profiler; (d) 5
+   segmentation steps on the production UNet (13 sm90 + 1 cin1 forward,
+   12 sm90 + 1 sm90n data gradients a step, no wmma), the loss falling.
 
 Before the last line it prints one JSON object `{"kernels": [...]}` (per
 kernel and conv route: launches on the reported run, max error against the
 plain version, kernel / plain / library milliseconds and the bound; sm90,
-cin1, f32 and distance rows add the replaced build's milliseconds, sm90
-rows the loads-only build's, the cin1 row the stores-only build's; the
-`:bn` rows count the launches of phase 8 (d), the `:b16` rows those of
-phase 10 (b)), then the card line.
+sm90n, cin1, f32 and distance rows add the replaced build's milliseconds,
+sm90 and sm90n rows the loads-only build's, the cin1 row the stores-only
+build's; the `:bn` rows count the launches of phase 8 (d), the `:b16` rows
+those of phase 10 (b), phase 2's sm90n row those of phase 11 (d), the
+`:train.` and `:dgrad` rows those of phase 11), then the card line.
 The last line is `{"ok": true, "device": {...}}`. Without a CUDA card it
 exits with code 1 and prints no result. It imports nothing of JAX.
 """
@@ -177,6 +192,7 @@ REG_GRID = (48, 96, 96)  # the registration grid; the finest stage (scale 1) run
 REG_WIDTH = 24  # the shipped GradICON's stage width (oai_analysis_2_tpu/weights/gradicon.npz)
 DIST_SHAPE = (32_500, 65_000)  # points x triangles, production mesh sizes
 CONV_SOURCES = {"sm90": "oai_analysis_2_tpu_torch/csrc/conv3d_sm90.cu",
+                "sm90n": "oai_analysis_2_tpu_torch/csrc/conv3d_sm90n.cu",
                 "cin1": "oai_analysis_2_tpu_torch/csrc/conv3d_cin1.cu",
                 "wmma": "oai_analysis_2_tpu_torch/csrc/conv3d.cu",
                 "f32": "oai_analysis_2_tpu_torch/csrc/conv3d_f32.cu"}
@@ -250,6 +266,7 @@ def reset_launches(cuda_conv, cuda_kernels):
 def read_launches(cuda_conv, cuda_kernels) -> dict:
     return {
         "conv3d_sm90": cuda_conv.conv3d.launches_sm90,
+        "conv3d_sm90n": cuda_conv.conv3d.launches_sm90n,
         "conv3d_cin1": cuda_conv.conv3d.launches_cin1,
         "conv3d_wmma": cuda_conv.conv3d.launches_wmma,
         "conv3d_f32": cuda_conv.conv3d.launches_f32,
@@ -259,10 +276,13 @@ def read_launches(cuda_conv, cuda_kernels) -> dict:
 
 def check_bf16_routes(launches, what):
     """Each UNet forward runs 14 bf16 convs, enc0a's alone on the cin1
-    route; no conv of the production UNet reaches the wmma build."""
-    if launches["conv3d_sm90"] != 13 * launches["conv3d_cin1"] or launches["conv3d_wmma"] != 0:
+    route; no serving conv reaches the wmma build or the sm90n kernel (that
+    kernel serves the trainers' narrow convs)."""
+    if launches["conv3d_sm90"] != 13 * launches["conv3d_cin1"] or launches["conv3d_wmma"] != 0 \
+            or launches["conv3d_sm90n"] != 0:
         raise AssertionError(f"{what}: sm90 route took {launches['conv3d_sm90']} bf16 conv launches, want 13 per "
-                             f"enc0a launch ({launches['conv3d_cin1']}); wmma took {launches['conv3d_wmma']}, want 0")
+                             f"enc0a launch ({launches['conv3d_cin1']}); wmma took {launches['conv3d_wmma']}, "
+                             f"sm90n {launches['conv3d_sm90n']}, want 0")
 
 
 def unet_convs(spec, shape, prefix):
@@ -301,17 +321,20 @@ def conv_bounds(voxels, cin, cout, esize, out_size, bias=True):
     return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
 
 
-def conv_case(torch, F, cuda_conv, name, shape, cin, cout, dtype, tol, reps, clock=False, bn=False, others=True):
+def conv_case(torch, F, cuda_conv, name, shape, cin, cout, dtype, tol, reps, clock=False, bn=False, others=True,
+              dgrad=False):
     """One conv shape: kernel vs plain version, times and bound. `bn`: the
     batch-norm UNet's route (no ReLU, f32 output: BN runs after the conv).
-    `others`: also time the other builds at this shape."""
+    `dgrad`: a data gradient, the conv of an output gradient (Cin) with a
+    flipped kernel (Cout), without bias and ReLU. `others`: also time the
+    other builds at this shape."""
     route = cuda_conv.conv3d_route(cin, cout, dtype)
-    relu = not bn
+    relu = not bn and not dgrad
     out_dtype = torch.float32 if bn else dtype  # the output type the path takes
     gen = torch.Generator(device="cuda").manual_seed(len(name) * 1000 + cin)
     x = torch.randn(shape + (cin,), device="cuda", generator=gen).to(dtype)
     k = (torch.randn((3, 3, 3, cin, cout), device="cuda", generator=gen) / (27 * cin) ** 0.5).to(dtype)
-    b = torch.randn((cout,), device="cuda", generator=gen) * 0.1
+    b = None if dgrad else torch.randn((cout,), device="cuda", generator=gen) * 0.1
     want = cuda_conv.conv3d_reference(x, k, b, relu=relu, out_dtype=torch.float32)
     # f32 output: the kernel's f32 accumulator and epilogue, held at 1e-4
     # where K is short (cin1: 27 products) or the operands are f32
@@ -332,11 +355,12 @@ def conv_case(torch, F, cuda_conv, name, shape, cin, cout, dtype, tol, reps, clo
     # (bias fused, ReLU not); never called by the port
     x_cl = x.permute(0, 4, 1, 2, 3)
     w_cl = k.permute(4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
-    b_lib = b.to(dtype)
+    b_lib = None if b is None else b.to(dtype)
     library_ms = time_ms(torch, lambda: F.conv3d(x_cl, w_cl, b_lib, padding=1), reps)
     voxels = int(np.prod(shape))
     flops = 2.0 * 27 * cin * cout * voxels
-    bound_ms, bound_by = conv_bounds(voxels, cin, cout, x.element_size(), torch.finfo(out_dtype).bits // 8)
+    bound_ms, bound_by = conv_bounds(voxels, cin, cout, x.element_size(), torch.finfo(out_dtype).bits // 8,
+                                     bias=b is not None)
     extra = {}  # other builds are timed at the ReLU route's rows only
     if route == "f32":
         # uncounted launches: the f32 build that this route replaced, and the
@@ -360,6 +384,16 @@ def conv_case(torch, F, cuda_conv, name, shape, cin, cout, dtype, tol, reps, clo
             "loads_ms": time_ms(torch, lambda: cuda_conv.launch(x, k, b, route="sm90", relu=True,
                                                                  out_dtype=dtype, loads_only=True), reps),
         }
+    if route == "sm90n" and not bn and others:
+        # uncounted launches at the same shape: the wmma build, which ran
+        # these convs before the sm90n route, and the sm90n kernel's load
+        # pipeline alone (no wgmma, no stores)
+        extra = {
+            "was_ms": time_ms(torch, lambda: cuda_conv.launch(x, k, b, route="wmma", relu=relu,
+                                                               out_dtype=dtype), reps),
+            "loads_ms": time_ms(torch, lambda: cuda_conv.launch(x, k, b, route="sm90n", relu=relu,
+                                                                 out_dtype=dtype, loads_only=True), reps),
+        }
     if route == "cin1" and not bn and others:
         # uncounted launches at enc0a's shape: the wmma build of
         # csrc/conv3d.cu, which ran enc0a before the cin1 route, the cin1
@@ -381,7 +415,9 @@ def conv_case(torch, F, cuda_conv, name, shape, cin, cout, dtype, tol, reps, clo
         "route": "cuda",
         "source": CONV_SOURCES[route],
         "replaces": "oai_analysis_2_tpu/ops/pallas_conv.py:100",
-        "shape": f"x {list(shape) + [cin]} -> Cout {cout}" + (", no ReLU, f32 out (BN route)" if bn else ""),
+        "shape": (f"dy {list(shape) + [cin]} -> Cin {cout}, a data gradient (flipped kernel, no bias, no ReLU)"
+                  if dgrad else f"x {list(shape) + [cin]} -> Cout {cout}"
+                  + (", no ReLU, f32 out (BN route)" if bn else "")),
         "launches": None,
         "max_abs_err": err,
         "tol": {"atol": tol, "rtol": tol},
@@ -545,8 +581,8 @@ def profile_knee(torch, pipe, knee) -> dict:
     spans, busy_us, by_name = device_spans(prof)
     # the "was" families are the builds that the enc0a (cin1), f32 and
     # distance kernels replaced: the main path must not reach them
-    families = {"conv3d_sm90": "conv3d_sm90_kernel", "conv3d_cin1": "conv3d_cin1_kernel",
-                "conv3d_cin1_was": "conv3d_bf16_kernel",
+    families = {"conv3d_sm90": "conv3d_sm90_kernel", "conv3d_sm90n": "conv3d_sm90n_kernel",
+                "conv3d_cin1": "conv3d_cin1_kernel", "conv3d_cin1_was": "conv3d_bf16_kernel",
                 "conv3d_f32": "conv3d_f32_ring_kernel", "point_triangle": "point_triangle_min_d2_fma_kernel",
                 "conv3d_f32_was": "conv3d_f32_kernel", "point_triangle_was": "point_triangle_min_d2_kernel"}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
@@ -691,7 +727,8 @@ def accurate_knee(torch, cuda_conv, cuda_kernels, base, knee, name, kwargs) -> d
 RELEASE_ATLAS = "atlas_60_LEFT_baseline_NMI"
 # phase 8 (b): the CLI knee's launches (5 z-slabs x 14 bf16 convs, the
 # network's 60 f32 convs, 2 tissues x 2 distance directions)
-CLI_LAUNCHES = {"conv3d_sm90": 65, "conv3d_cin1": 5, "conv3d_wmma": 0, "conv3d_f32": 60, "point_triangle": 4}
+CLI_LAUNCHES = {"conv3d_sm90": 65, "conv3d_sm90n": 0, "conv3d_cin1": 5, "conv3d_wmma": 0, "conv3d_f32": 60,
+                "point_triangle": 4}
 
 
 def reference_state_dict(torch, params: dict, n_dec: int) -> dict:
@@ -833,7 +870,7 @@ def release_layout(torch, cuda_conv, cuda_kernels, base, knee, ref) -> dict:
     torch.cuda.synchronize()
     mapper_s = time.perf_counter() - t0
     mapper_launches = read_launches(cuda_conv, cuda_kernels)
-    if any(mapper_launches[k] for k in ("conv3d_sm90", "conv3d_cin1", "conv3d_wmma", "conv3d_f32")):
+    if any(mapper_launches[k] for k in ("conv3d_sm90", "conv3d_sm90n", "conv3d_cin1", "conv3d_wmma", "conv3d_f32")):
         raise AssertionError(f"the atlas mapper segmented the atlas: {mapper_launches}")
     atlas_dir_out = root / "out_atlas"
     for _ in range(2):
@@ -872,8 +909,9 @@ def release_layout(torch, cuda_conv, cuda_kernels, base, knee, ref) -> dict:
     torch.cuda.synchronize()
     bn_s = time.perf_counter() - t0
     bn_launches = read_launches(cuda_conv, cuda_kernels)
-    if (bn_launches["conv3d_sm90"], bn_launches["conv3d_cin1"], bn_launches["conv3d_wmma"]) != (65, 5, 0):
-        raise AssertionError(f"BN segment launches {bn_launches}, want 65 sm90, 5 cin1, no wmma")
+    if (bn_launches["conv3d_sm90"], bn_launches["conv3d_cin1"], bn_launches["conv3d_wmma"],
+            bn_launches["conv3d_sm90n"]) != (65, 5, 0, 0):
+        raise AssertionError(f"BN segment launches {bn_launches}, want 65 sm90, 5 cin1, no wmma, no sm90n")
     err = max(float((g.data - w.data).abs().max()) for g, w in zip(got, want))
     if not err <= 1e-3 or not all(bool(g.data.isfinite().all()) for g in got):
         raise AssertionError(f"identity-BN segment differs from the fused route by {err} (> 1e-3)")
@@ -1085,8 +1123,8 @@ BENCH_BATCH_KEYS = (
 # phase 10 (b): the batched path's launches on two knees: 20 steps of 16
 # tiles through the 14 bf16 convs (enc0a on cin1), the network's 60 f32
 # convs a knee, 2 tissues x 2 directions of the distance a knee
-BATCH_LAUNCHES = {"conv3d_sm90": 2 * 130, "conv3d_cin1": 2 * 10, "conv3d_wmma": 0, "conv3d_f32": 2 * 60,
-                  "point_triangle": 8}
+BATCH_LAUNCHES = {"conv3d_sm90": 2 * 130, "conv3d_sm90n": 0, "conv3d_cin1": 2 * 10, "conv3d_wmma": 0,
+                  "conv3d_f32": 2 * 60, "point_triangle": 8}
 
 
 def check_meshes_close(got: dict, ref: dict, size_tol: float, mean_tol: float, what: str) -> None:
@@ -1460,6 +1498,12 @@ def conv_train_case(torch, cuda_conv, name, shape, cin, cout, dtype, reps, dgrad
         "wgrad_bound_ms": max(w_ops, w_bytes / HBM_BYTES_PER_S * 1e3),
         "tflops": 2.0 * 27 * cin * cout * voxels / fwd_ms * 1e-9,
     }
+    if route == "sm90n":
+        # uncounted: the wmma build that ran this conv before, the load pipeline alone
+        fwd["was_ms"] = time_ms(torch, lambda: cuda_conv.launch(x, k, b, route="wmma", relu=True, out_dtype=dtype),
+                                reps)
+        fwd["loads_ms"] = time_ms(torch, lambda: cuda_conv.launch(x, k, b, route="sm90n", relu=True, out_dtype=dtype,
+                                                                  loads_only=True), reps)
     rows = [fwd, None]
     if dgrad:
         dgrad_ms = time_ms(torch, lambda: cuda_conv.conv3d(g, kd, None, relu=False, out_dtype=dtype), reps)
@@ -1481,6 +1525,11 @@ def conv_train_case(torch, cuda_conv, name, shape, cin, cout, dtype, reps, dgrad
             "library_ms": dlib_ms,
             "tflops": 2.0 * 27 * cin * cout * voxels / dgrad_ms * 1e-9,
         }
+        if droute == "sm90n":
+            rows[1]["was_ms"] = time_ms(torch, lambda: cuda_conv.launch(g, kd, None, route="wmma", out_dtype=dtype),
+                                        reps)
+            rows[1]["loads_ms"] = time_ms(torch, lambda: cuda_conv.launch(g, kd, None, route="sm90n", out_dtype=dtype,
+                                                                          loads_only=True), reps)
     del x, k, b, dy, g, kd, x_cl, g_cl, w_cl
     torch.cuda.empty_cache()
     return rows
@@ -1718,7 +1767,7 @@ def gradicon_training(torch, cuda_conv, tmp_root) -> dict:
 
 def profile_train_step(torch, fn) -> dict:
     """One training step under torch.profiler: wall, the device's busy time
-    and device ms by kernel family: the conv kernels (wmma, sm90, cin1, f32;
+    and device ms by kernel family: the conv kernels (wmma, sm90, sm90n, cin1, f32;
     forward and data gradient share a kernel), everything else by name."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1731,7 +1780,8 @@ def profile_train_step(torch, fn) -> dict:
         wall = time.perf_counter() - t0
     spans, busy_us, by_name = device_spans(prof)
     families = {"conv3d_wmma": "conv3d_bf16_kernel", "conv3d_sm90": "conv3d_sm90_kernel",
-                "conv3d_cin1": "conv3d_cin1_kernel", "conv3d_f32": "conv3d_f32_ring_kernel"}
+                "conv3d_sm90n": "conv3d_sm90n_kernel", "conv3d_cin1": "conv3d_cin1_kernel",
+                "conv3d_f32": "conv3d_f32_ring_kernel"}
     fam_us = {fam: sum(us for n, us in by_name.items() if key in n) for fam, key in families.items()}
     rest = {n: us for n, us in by_name.items() if not any(key in n for key in families.values())}
     top = sorted(rest.items(), key=lambda kv: -kv[1])[:10]
@@ -1881,6 +1931,10 @@ def main() -> int:
     kernels += [conv_case(torch, F, cuda_conv, name, shape, cin, cout, torch.bfloat16, 2e-2,
                           reps=5 if shape == TILE and cin > 1 else 20, others=False)
                 for name, shape, cin, cout in BATCH_CONVS]
+    # the segmentation trainer's enc0b data gradient (64 -> 32 at its batch of
+    # 2 x 32x128x128), the sm90n kernel at the widest input it takes
+    kernels.append(conv_case(torch, F, cuda_conv, "unet.enc0b:dgrad", TRAIN_TILE, 64, 32, torch.bfloat16, 2e-2,
+                             reps=10, dgrad=True))
     kernels += [conv_case(torch, F, cuda_conv, name, shape, cin, cout, torch.float32, 1e-4, reps=20,
                           clock=name == "stage2.dec1a")
                 for name, shape, cin, cout in gradicon_convs()]
@@ -1936,7 +1990,7 @@ def main() -> int:
     if not quality or not all(np.isfinite(v) for v in quality.values()):
         raise AssertionError(f"registration quality missing or non-finite: {quality}")
     for name, n in launches.items():
-        if name != "conv3d_wmma" and n <= 0:
+        if name not in ("conv3d_wmma", "conv3d_sm90n") and n <= 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
     check_bf16_routes(launches, "full knee")
     for k in kernels:
@@ -2035,12 +2089,15 @@ def main() -> int:
         route = k["name"].split(":")[0][len("conv3d_"):]
         for path, counts in per_step.items():
             k["launches_by_path"][path] = sum(v for key, v in counts.items() if key.endswith(f"_{route}"))
+        if route == "sm90n":  # phase 2's data-gradient row: the launches of (d)'s 5 steps
+            k["launches"] = int(train["d"]["launches_per_step"]["dgrad_sm90n"] * SEG_TRAIN_STEPS)
     for k in kernels[n_before:]:
         log(f"phase training: {k['name']} [{k['shape']}] errs {json.dumps(k.get('grad_errs', k['max_abs_err']))} "
             f"kernel {k['ms']:.3f} ms, plain {k['plain_ms']:.3f} ms, library {k['library_ms']:.3f} ms, "
             f"bound {k['bound_ms']:.3f} ms ({k['bound_by']}), launches {k['launches']}"
             + (f", weight gradient {k['wgrad_ms']:.3f} ms (bound {k['wgrad_bound_ms']:.3f})"
-               if "wgrad_ms" in k else ""))
+               if "wgrad_ms" in k else "")
+            + (f", was {k['was_ms']:.3f} ms, loads alone {k['loads_ms']:.3f} ms" if "was_ms" in k else ""))
     log(f"phase training ({train['phase_s']:.1f} s, card {card}): {json.dumps(train)}")
 
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -11,6 +11,21 @@ package's layouts (NDHWC activations, DHWIO kernels, [z, y, x] volumes,
 xyz-ordered origin/spacing/direction). Entry points take `device=None`,
 which means "cuda", and raise when no card is present unless the caller
 asks for the CPU.
+
+`AnalysisObject` loads lazily, as in the JAX package, so importing the
+package builds and loads no kernel library. The JAX package's
+`enable_compilation_cache` has no counterpart: the kernel libraries are
+cached by content hash in `build/kernels/` (`ops/cuda_build.py`).
 """
 
-__version__ = "0.1.0"
+from oai_analysis_2_tpu_torch.__about__ import __version__
+
+__all__ = ["__version__", "AnalysisObject"]
+
+
+def __getattr__(name):
+    if name == "AnalysisObject":
+        from oai_analysis_2_tpu_torch.analysis_object import AnalysisObject
+
+        return AnalysisObject
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

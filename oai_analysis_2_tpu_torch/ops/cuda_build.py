@@ -35,6 +35,7 @@ EXTRA_FLAGS: Dict[str, List[str]] = {
     "conv3d_cin1": [],
     "conv3d_f32": [],
     "conv3d_sm90": [],
+    "conv3d_sm90n": [],
     "point_triangle": [],
     "point_triangle_was": ["--fmad=false"],
 }

@@ -1,6 +1,6 @@
 """3x3x3 SAME convolution: the wrapper of the Hopper kernels
-`csrc/conv3d_sm90.cu`, `csrc/conv3d_cin1.cu`, `csrc/conv3d_f32.cu` and
-`csrc/conv3d.cu`, and their plain PyTorch version.
+`csrc/conv3d_sm90.cu`, `csrc/conv3d_sm90n.cu`, `csrc/conv3d_cin1.cu`,
+`csrc/conv3d_f32.cu` and `csrc/conv3d.cu`, and their plain PyTorch version.
 
 Replaces the TPU kernel `_kernel`/`conv3d_zstack`
 (`oai_analysis_2_tpu/ops/pallas_conv.py:100-243`) and keeps its contract:
@@ -19,19 +19,25 @@ Routes (`conv3d_route`, by channel counts and type alone):
     landed by TMA, products from ldmatrix, the output staged in shared
     memory and stored by TMA). It takes the weights as (32, Cout), re-laid
     out here per call;
-  * "wmma": any other bf16 shape (ragged channels), the wmma build of
-    `csrc/conv3d.cu`;
+  * "sm90n": any other bf16 shape with Cin % 8 == 0 (the GradICON stage
+    convs, forward and data gradient; the UNet's enc0b data gradient), the
+    TMA + wgmma kernel of `csrc/conv3d_sm90n.cu` at narrow and ragged
+    widths: wgmma N = Cout rounded up to 8 (wider Cout in equal n-tiles),
+    channel chunks whose ragged end TMA zero-fills, the tile chosen by
+    `sm90n_tile`. It takes the weights as sm90 does;
+  * "wmma": bf16 with Cin % 8 != 0 (the GradICON enc0a forward, Cin 2),
+    the wmma build of `csrc/conv3d.cu`;
   * "f32": f32 operands (the GradICON stages), the CUDA-core kernel of
     `csrc/conv3d_f32.cu` (cp.async ring, 8 x 8 register tiles, the tile
     chosen by `f32_tile`).
 
 `conv3d` takes the plain version ONLY for tensors on the CPU. A CUDA tensor
 launches its route's kernel or raises: no route falls back to another.
-`conv3d.launches` counts every launch, `conv3d.launches_sm90`,
-`conv3d.launches_cin1`, `conv3d.launches_wmma` and `conv3d.launches_f32`
-each route's share. `launch` is the uncounted launcher under `conv3d`, open
+`conv3d.launches` counts every launch, `conv3d.launches_<route>` each
+route's share. `launch` is the uncounted launcher under `conv3d`, open
 to measurements that time a route at another's shape (the wmma build at
-enc0a's), the sm90 kernel's loads alone, the cin1 kernel's stores alone or
+enc0a's or at an sm90n shape), the sm90 or sm90n kernel's loads alone, the
+cin1 kernel's stores alone or
 its general load and store paths, or the f32 build that the "f32" route replaced (route "f32_was", the CUDA-core
 build of `csrc/conv3d.cu`).
 
@@ -55,12 +61,19 @@ import torch
 import torch.nn.functional as F
 
 _DTYPES = (torch.bfloat16, torch.float32)
-ROUTES = ("sm90", "cin1", "wmma", "f32")
+ROUTES = ("sm90", "sm90n", "cin1", "wmma", "f32")
 # what `launch` takes: the routes, and the f32 build that the "f32" route
 # replaced (the CUDA-core kernel of csrc/conv3d.cu), which `conv3d` never takes
 BUILDS = ROUTES + ("f32_was",)
 _F32_TILE_OUTPUTS = 12288  # BM * BN of csrc/conv3d_f32.cu: 192 threads of 8 x 8
 _SMS = 132  # streaming multiprocessors of an H100 SXM
+# the sm90n kernel's wgmma widths and, for each, its m64 tiles a consumer
+# warpgroup: the accumulator takes MW * N / 2 registers a thread, and a
+# block of 288 threads may hold 168 registers a thread (above 96 for the
+# accumulator, ptxas spills)
+SM90N_BN = (8, 24, 32, 48, 64, 96, 144, 192)
+_SM90N_MW = {8: (1, 2, 3), 24: (1, 2, 3), 32: (1, 2, 3), 48: (1, 2, 3), 64: (1, 2, 3), 96: (1, 2), 144: (1,),
+             192: (1,)}
 
 
 def conv3d_route(cin: int, cout: int, dtype: torch.dtype) -> str:
@@ -72,7 +85,49 @@ def conv3d_route(cin: int, cout: int, dtype: torch.dtype) -> str:
         return "sm90"
     if cin == 1 and cout % 8 == 0 and cout <= 64:
         return "cin1"
+    if cin % 8 == 0:
+        return "sm90n"
     return "wmma"
+
+
+def sm90n_stages(bkc: int, bn: int, mw: int) -> int:
+    """Ring stages of the sm90n kernel's block (`Cfg::STAGES` of
+    `csrc/conv3d_sm90n.cu`): the (BX + 2) x 8 activation box and the 3 x BN
+    weight box of one chunk, each padded to 1 KB, as many as fit in 225 KB
+    less 2 KB, at most 8."""
+    def pad(v):
+        return -(-v // 1024) * 1024
+
+    stage = pad((16 * mw + 2) * 8 * 2 * bkc) + pad(3 * bn * 2 * bkc)
+    return min(8, (225 * 1024 - 2048) // stage)
+
+
+def sm90n_tile(cin: int, cout: int, shape) -> tuple:
+    """(BKC input channels a chunk, BN output channels an n-tile, n-tiles,
+    MW m64 tiles a consumer) of the sm90n kernel for `cin` -> `cout` over an
+    output of `shape` (B, D, H, W). BN: the narrowest wgmma width that
+    holds an equal share of Cout in ceil(Cout / 192) tiles. BKC: the widest
+    of 64, 32 and 16 channels whose chunks, zero-filled past Cin, pad K by
+    at most 15 % over 16-channel chunks (on an H100 the load pipeline, which
+    bounds this kernel, moves wide rows faster than it loses to the
+    padding: Cin 24 and 144 take 32, 288 takes 64, 48 takes 16), halved
+    while fewer than three stages fit. MW: of BN's choices the one that
+    takes the fewest waves of one block per SM, each weighted by the
+    block's work (MW + 1/2), the larger on a tie."""
+    b, d, h, w = shape
+    n_tiles = -(-cout // 192)
+    share = -(-cout // n_tiles)
+    bn = min(v for v in SM90N_BN if v >= share)
+    best = None
+    for mw in _SM90N_MW[bn]:
+        bkc = max(v for v in (64, 32, 16) if -(-cin // v) * v <= 1.15 * -(-cin // 16) * 16)
+        while sm90n_stages(bkc, bn, mw) < 3:
+            bkc //= 2
+        blocks = n_tiles * -(-w // (16 * mw)) * -(-h // 8) * d * b
+        cost = (-(-blocks // _SMS) * (mw + 0.5), -mw)
+        if best is None or cost < best[0]:
+            best = (cost, (bkc, bn, n_tiles, mw))
+    return best[1]
 
 
 def f32_tile(cout: int, voxels: int) -> tuple:
@@ -197,8 +252,9 @@ def launch(
     """Launch `route`'s kernel on CUDA tensors, uncounted: `conv3d` calls it
     with the route of the shape and counts the launch. Called directly, it
     times one build at a shape another route owns, the f32 build that the
-    "f32" route replaced (route="f32_was"), or (`loads_only`, sm90) the sm90
-    kernel's load pipeline alone, whose output is left unwritten, or
+    "f32" route replaced (route="f32_was"), or (`loads_only`, sm90 and
+    sm90n) the kernel's load pipeline alone, whose output is left
+    unwritten, or
     (`compute_only`, f32) the f32 kernel's multiplies alone, without its
     copies, whose output is garbage, or (`stores_only`, cin1) the cin1
     kernel's stores alone, without its loads and products, whose output is
@@ -208,14 +264,16 @@ def launch(
     out_dtype = x.dtype if out_dtype is None else out_dtype
     if route not in BUILDS or route.startswith("f32") != (x.dtype == torch.float32):
         raise ValueError(f"conv3d: route {route!r} does not take {x.dtype} operands")
-    if loads_only and route != "sm90":
-        raise ValueError("conv3d: only the sm90 route has a loads-only build")
+    if loads_only and route not in ("sm90", "sm90n"):
+        raise ValueError("conv3d: only the sm90 and sm90n routes have a loads-only build")
     if compute_only and route != "f32":
         raise ValueError("conv3d: only the f32 route has a compute-only build")
     if stores_only and route != "cin1":
         raise ValueError("conv3d: only the cin1 route has a stores-only build")
     if general and route != "cin1":
         raise ValueError("conv3d: only the cin1 route has a general build")
+    if route == "sm90n" and x.shape[-1] % 8:
+        raise ValueError(f"conv3d: the sm90n route needs Cin % 8 == 0, got {x.shape[-1]}")
     if x.device.type != "cuda":
         raise ValueError(f"conv3d: unsupported device {x.device}")
     _check(x, kernel, bias, out_dtype)
@@ -225,17 +283,18 @@ def launch(
     cout = kernel.shape[4]
     out = torch.empty((b, d, h, w, cout), dtype=out_dtype, device=x.device)
     bias_ptr = None if bias is None else bias.data_ptr()
-    if route == "sm90":
-        if cin % 16 or cout % 64:
+    if route in ("sm90", "sm90n"):
+        if route == "sm90" and (cin % 16 or cout % 64):
             raise ValueError(f"conv3d: the sm90 route needs Cin % 16 == 0 and Cout % 64 == 0, got {cin}, {cout}")
         # TMA needs a 16-byte-aligned base; wt and out are fresh allocations
         if x.data_ptr() % 16:
-            raise ValueError("conv3d: the sm90 route needs 16-byte-aligned x (check its storage offset)")
+            raise ValueError(f"conv3d: the {route} route needs 16-byte-aligned x (check its storage offset)")
         wt = sm90_weights(kernel)
-        fn = load_library("conv3d_sm90").conv3d_sm90
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        fn = getattr(load_library(f"conv3d_{route}"), f"conv3d_{route}")
+        tile = list(sm90n_tile(cin, cout, (b, d, h, w))) if route == "sm90n" else []
         args = [x.data_ptr(), wt.data_ptr(), bias_ptr, out.data_ptr(), b, d, h, w, cin, cout,
-                int(relu), int(out_dtype == torch.bfloat16), int(loads_only)]
+                int(relu), int(out_dtype == torch.bfloat16), *tile, int(loads_only)]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * (len(args) - 4) + [ctypes.c_void_p]
     elif route == "cin1":
         if cin != 1 or cout % 8 or cout > 64:
             raise ValueError(f"conv3d: the cin1 route needs Cin == 1, Cout % 8 == 0 and Cout <= 64, got {cin}, {cout}")
@@ -352,7 +411,7 @@ def _error_text(err: int) -> str:
     if err == -1:
         return "no cuTensorMapEncodeTiled in libcuda"
     if err == -2:
-        return "a tile the f32 kernel was not built for"
+        return "a tile the kernel was not built for"
     if err <= -1000:
         return f"cuTensorMapEncodeTiled error {-err - 1000}"
     return f"CUDA error {err}"

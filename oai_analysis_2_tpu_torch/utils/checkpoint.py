@@ -121,6 +121,37 @@ def export_params(module: nn.Module) -> dict:
     return unflatten_tree(flat)
 
 
+def initialize_model(model, generator: Optional[torch.Generator] = None,
+                     ckpoint_path=None) -> Tuple[dict, int, float]:
+    """(params as a numpy tree, finished epoch, best score) of a UNet (port
+    of `initialize_model`, `oai_analysis_2_tpu/utils/checkpoint.py:100-121`,
+    reference utils.py:10-45): from a native `.npz` checkpoint, from a torch
+    `.pth.tar` checkpoint converted on the fly, or, with no path, a fresh
+    init of `model` drawn from `generator` (`UNet3D.init`, which also sets
+    the module's parameters)."""
+    if ckpoint_path:
+        p = Path(ckpoint_path)
+        if not p.is_file():
+            raise ValueError(f"no checkpoint found at '{p}'")
+        if p.suffix == ".npz":
+            state = load_checkpoint(p)
+            return state["params"], int(state.get("epoch", 0)), float(state.get("best_score", 0.0))
+        sd, epoch, best = load_torch_checkpoint(p)
+        return convert_torch_unet_state_dict(sd, model.spec), epoch, best
+    return export_params(model.init(generator)), 0, 0.0
+
+
+def weight_from_truth(truths, n_classes: int) -> torch.Tensor:
+    """Inverse class-frequency loss weights, normalised to sum 1, 0 for an
+    absent class (port of `weight_from_truth`,
+    `oai_analysis_2_tpu/utils/checkpoint.py:258-263`, reference
+    utils.py:60-70): an f32 tensor on the labels' device."""
+    truths = torch.as_tensor(truths)
+    counts = torch.stack([(truths == c).sum() for c in range(n_classes)]).to(torch.float32)
+    ratio_inv = torch.where(counts > 0, truths.numel() / counts.clamp(min=1), torch.zeros_like(counts))
+    return ratio_inv / ratio_inv.sum()
+
+
 # -- the reference's torch checkpoints ------------------------------------------
 
 

@@ -1,5 +1,6 @@
-"""Per-stage wall timers and a profiler trace (port of `StageTimer` and
-`trace`, `oai_analysis_2_tpu/utils/profiling.py:18-67`).
+"""Per-stage wall timers, the process-wide timer and a profiler trace (port
+of `StageTimer`, `GLOBAL_TIMER` and `trace`,
+`oai_analysis_2_tpu/utils/profiling.py:18-67`).
 
 Where the JAX package blocks on device results at a stage end, this timer
 synchronizes the card, so a stage's seconds cover its device work and not
@@ -9,6 +10,7 @@ only the enqueue.
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import time
 from collections import defaultdict
@@ -43,6 +45,12 @@ class StageTimer:
             name: {"seconds": round(t, 4), "calls": self.counts[name]}
             for name, t in sorted(self.totals.items())
         }
+
+    def print_report(self) -> None:
+        print(json.dumps(self.report(), indent=1))
+
+
+GLOBAL_TIMER = StageTimer()
 
 
 @contextlib.contextmanager

@@ -226,3 +226,57 @@ def test_network_registry():
     assert get_available_networks() == jnets()
     for n in jnets():
         assert dataclasses.asdict(TSPECS[n]) == dataclasses.asdict(JSPECS[n]), n
+
+
+@pytest.mark.parametrize("source", ["npz", "pth.tar", "fresh"])
+def test_initialize_model_matches(tmp_path, source):
+    """`initialize_model` in both packages: an npz checkpoint and a torch
+    `.pth.tar` give the same tree (within 1e-6), epoch and best score; a
+    fresh init gives the same keys and shapes, epoch 0 and best score 0
+    (the two packages draw from different generators)."""
+    spec = JSPECS["UNet_light2"].replace(bias=True)
+    tmodel = TUNet(TSPECS["UNet_light2"].replace(bias=True), device="cpu")
+    jmodel = JUNet(spec)
+    path = None
+    if source == "npz":
+        params = TC.export_params(tmodel.init(torch.Generator().manual_seed(3)))
+        path = TC.save_checkpoint({"params": params, "epoch": 7, "best_score": 0.625}, tmp_path / "ck.npz")
+    elif source == "pth.tar":
+        path = tmp_path / "segmentation_model.pth.tar"
+        torch.save({"model_state_dict": _oracle(spec).state_dict(), "epoch": 600, "best_score": 0.875}, path)
+    t_params, t_epoch, t_best = TC.initialize_model(tmodel, torch.Generator().manual_seed(0), path)
+    j_params, j_epoch, j_best = JC.initialize_model(jmodel, jax.random.PRNGKey(0), path)
+    assert (t_epoch, t_best) == (j_epoch, j_best)
+    assert (t_epoch, t_best) == {"npz": (7, 0.625), "pth.tar": (600, 0.875), "fresh": (0, 0.0)}[source]
+    flat_t = TC.flatten_tree(t_params)
+    flat_j = TC.flatten_tree(jax.tree_util.tree_map(np.asarray, j_params))
+    assert set(flat_t) == set(flat_j)
+    for k, v in flat_j.items():
+        assert flat_t[k].shape == v.shape, k
+        if source != "fresh":
+            np.testing.assert_allclose(flat_t[k], v, atol=1e-6, rtol=1e-6, err_msg=k)
+    if source == "fresh":  # the module carries what was returned
+        TC.carry_params(tmodel, t_params)
+
+
+def test_initialize_model_refuses_a_missing_file(tmp_path):
+    tmodel = TUNet(TSPECS["UNet_light2"].replace(bias=True), device="cpu")
+    with pytest.raises(ValueError, match="no checkpoint"):
+        TC.initialize_model(tmodel, ckpoint_path=tmp_path / "missing.npz")
+
+
+@pytest.mark.parametrize("n_classes,absent", [(3, None), (4, 2)])
+def test_weight_from_truth_matches(n_classes, absent):
+    """Inverse class-frequency weights of the same labels in both packages,
+    within 1e-6; an absent class weighs 0."""
+    rng = np.random.default_rng(6)
+    labels = rng.choice(n_classes, size=(2, 6, 7, 5), p=np.linspace(1, 3, n_classes) / np.linspace(1, 3, n_classes).sum())
+    if absent is not None:
+        labels[labels == absent] = 0
+    want = np.asarray(JC.weight_from_truth(jnp.asarray(labels), n_classes))
+    got = TC.weight_from_truth(torch.as_tensor(labels), n_classes)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (n_classes,)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=1e-6)
+    if absent is not None:
+        assert float(got[absent]) == 0.0
+    np.testing.assert_allclose(TC.weight_from_truth(labels, n_classes).numpy(), want, atol=1e-6, rtol=1e-6)

@@ -155,7 +155,7 @@ def test_gradicon_conv_route(name, kshape):
     assert cuda_conv.conv3d_route(cin, cout, torch.float32) == "f32"
 
 
-@pytest.mark.parametrize("cin,cout,want", [(1, 32, "cin1"), (8, 64, "wmma"), (16, 48, "wmma"), (24, 64, "wmma"),
+@pytest.mark.parametrize("cin,cout,want", [(1, 32, "cin1"), (8, 64, "sm90n"), (16, 48, "sm90n"), (24, 64, "sm90n"),
                                            (16, 64, "sm90"), (96, 192, "sm90"), (1, 8, "cin1"), (1, 16, "cin1"),
                                            (1, 64, "cin1"), (1, 24, "cin1"), (1, 12, "wmma"), (1, 72, "wmma"),
                                            (2, 32, "wmma")])
@@ -163,9 +163,41 @@ def test_conv_route_shape_rule(cin, cout, want):
     assert cuda_conv.conv3d_route(cin, cout, torch.bfloat16) == want
 
 
+@pytest.mark.parametrize("name,kshape", GRADICON_CONVS, ids=[n for n, _ in GRADICON_CONVS])
+def test_gradicon_bf16_conv_routes(name, kshape):
+    """The bf16 GradICON trainer's routes, forward and data gradient (the
+    channels swapped): enc0a's forward (Cin 2) alone takes the wmma build,
+    enc2b's forward (96 -> 192) the sm90 kernel, every other conv both ways
+    the sm90n kernel."""
+    cin, cout = kshape[3], kshape[4]
+    forward = {"enc0a": "wmma", "enc2b": "sm90"}.get(name, "sm90n")
+    assert cuda_conv.conv3d_route(cin, cout, torch.bfloat16) == forward
+    assert cuda_conv.conv3d_route(cout, cin, torch.bfloat16) == "sm90n"
+
+
+@pytest.mark.parametrize("cin,cout,shape,want", [
+    (144, 48, (1, 48, 96, 96), (32, 48, 1, 3)),
+    (48, 144, (1, 48, 96, 96), (16, 144, 1, 1)),
+    (96, 288, (1, 24, 48, 48), (32, 144, 2, 1)),
+    (288, 96, (1, 24, 48, 48), (64, 96, 1, 1)),
+    (24, 2, (1, 48, 96, 96), (32, 8, 1, 3)),
+    (64, 32, (2, 32, 128, 128), (64, 32, 1, 2)),
+    (8, 1000, (1, 4, 4, 4), (16, 192, 6, 1)),
+])
+def test_sm90n_tile(cin, cout, shape, want):
+    """BN: the narrowest wgmma width holding an equal share of Cout in
+    ceil(Cout / 192) tiles; BKC the widest chunk that pads K by at most 15 %;
+    MW by the waves; at least three ring stages in 225 KB."""
+    tile = cuda_conv.sm90n_tile(cin, cout, shape)
+    assert tile == want
+    bkc, bn, n_tiles, mw = tile
+    assert bn in cuda_conv.SM90N_BN and n_tiles * bn >= cout and cuda_conv.sm90n_stages(bkc, bn, mw) >= 3
+
+
 @pytest.mark.parametrize("dtype,route,loads_only", [
     (torch.bfloat16, "f32", False), (torch.float32, "sm90", False), (torch.float32, "wmma", False),
-    (torch.bfloat16, "cudnn", False), (torch.bfloat16, "wmma", True),
+    (torch.bfloat16, "cudnn", False), (torch.bfloat16, "wmma", True), (torch.float32, "sm90n", False),
+    (torch.bfloat16, "cin1", True),
 ])
 def test_launch_rejects_a_route_that_cannot_take_the_call(dtype, route, loads_only):
     x, k, _ = _inputs((1, 3, 4, 5, 16), 64)
@@ -173,12 +205,42 @@ def test_launch_rejects_a_route_that_cannot_take_the_call(dtype, route, loads_on
         cuda_conv.launch(torch.tensor(x).to(dtype), torch.tensor(k).to(dtype), route=route, loads_only=loads_only)
 
 
-def test_launch_has_no_plain_version():
+@pytest.mark.parametrize("route", ["sm90", "sm90n"])
+def test_launch_has_no_plain_version(route):
     """`launch` is the kernels' launcher: a CPU tensor raises instead of
     taking `conv3d_reference`."""
     x, k, _ = _inputs((1, 3, 4, 5, 16), 64)
     with pytest.raises(ValueError, match="device"):
-        cuda_conv.launch(torch.tensor(x).to(torch.bfloat16), torch.tensor(k).to(torch.bfloat16), route="sm90")
+        cuda_conv.launch(torch.tensor(x).to(torch.bfloat16), torch.tensor(k).to(torch.bfloat16), route=route)
+
+
+@pytest.mark.parametrize("cin", [2, 12, 20])
+def test_sm90n_launcher_refuses_ragged_cin(cin):
+    """Cin % 8 != 0 gives activation rows that TMA cannot address: the
+    sm90n launcher refuses it before anything else (such shapes take the
+    wmma build)."""
+    x, k, _ = _inputs((1, 3, 4, 5, cin), 24)
+    with pytest.raises(ValueError, match="Cin % 8"):
+        cuda_conv.launch(torch.tensor(x).to(torch.bfloat16), torch.tensor(k).to(torch.bfloat16), route="sm90n")
+    assert cuda_conv.conv3d_route(cin, 24, torch.bfloat16) == "wmma"
+
+
+@pytest.mark.parametrize("shape,cout", [((1, 4, 6, 8, 24), 48), ((1, 4, 6, 8, 48), 24)])
+@pytest.mark.parametrize("relu", [False, True])
+def test_plain_conv_at_sm90n_shapes_matches_pallas_interpret(shape, cout, relu):
+    """Two GradICON channel pairs of the sm90n route (enc0b's 24 -> 48 and
+    its data gradient's 48 -> 24) in bf16: the port's plain conv against
+    the Pallas kernel in interpret mode, within 2e-2 (the same f32 sums in
+    another order)."""
+    x, k, b = _inputs(shape, cout, seed=2)
+    k = k / np.sqrt(27 * shape[-1] / 9)
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    kb = jnp.asarray(k).astype(jnp.bfloat16)
+    want = conv3d_zstack(xb, kb, jnp.asarray(b), relu=relu, out_dtype=jnp.float32,
+                         tz=shape[1] // 2, ty=shape[2] // 2, interpret=True)
+    got = cuda_conv.conv3d(torch.tensor(x).to(torch.bfloat16), torch.tensor(k).to(torch.bfloat16), torch.tensor(b),
+                           relu=relu, out_dtype=torch.float32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32), atol=2e-2, rtol=2e-2)
 
 
 def test_sm90_weight_layout():

@@ -124,6 +124,102 @@ def test_sm90_conv_refuses_misaligned_input(card):
     assert {r: getattr(cuda_conv.conv3d, f"launches_{r}") for r in cuda_conv.ROUTES} == before
 
 
+# (x shape, Cout) for the sm90n route (bf16, Cin % 8 == 0, not an sm90 or
+# cin1 shape). The GradICON stage convs' channel pairs, forward (24->48,
+# 48->48, 48->96, 96->96, 288->96, 144->48) and data gradient (24->2,
+# 48->24, 96->48, 192->96, 96->288, 48->144), and the UNet's enc0b data
+# gradient (64->32); Cout 2, 7 and 8 (one N = 8 tile, element stores at
+# Cout 2 and 7), 24, 144, 288 (two 144-wide n-tiles) and 1000 (four
+# 256-wide); Cin 8 and 24 (chunks that TMA zero-fills past Cin); 16-, 32-
+# and 64-channel chunks; one m64 tile a consumer at the small grids, three
+# (two at N = 144) at the 24x48x96 ones; D, H and W that no box divides, a
+# batch of 2, a single z plane
+SM90N_CASES = [
+    ((1, 3, 9, 37, 24), 48),
+    ((1, 3, 8, 40, 48), 48),
+    ((2, 3, 8, 24, 48), 96),
+    ((1, 2, 8, 96, 96), 96),
+    ((1, 3, 7, 20, 288), 96),
+    ((1, 3, 9, 50, 144), 48),
+    ((1, 3, 9, 37, 24), 2),
+    ((1, 3, 9, 37, 48), 24),
+    ((1, 4, 8, 48, 96), 48),
+    ((1, 3, 8, 40, 192), 96),
+    ((1, 3, 8, 48, 96), 288),
+    ((2, 3, 9, 33, 48), 144),
+    ((1, 2, 8, 96, 48), 144),
+    ((2, 2, 8, 128, 64), 32),
+    ((1, 5, 6, 10, 8), 8),
+    ((1, 1, 8, 16, 16), 24),
+    ((2, 3, 5, 7, 24), 7),
+    ((1, 3, 6, 11, 8), 64),
+    ((1, 2, 8, 16, 16), 1000),
+    ((1, 24, 48, 96, 144), 48),
+    ((1, 24, 48, 96, 48), 144),
+    ((1, 24, 48, 96, 64), 32),
+    ((1, 24, 48, 96, 96), 288),
+    ((1, 23, 45, 94, 24), 2),
+]
+
+
+@pytest.mark.parametrize("shape,cout", SM90N_CASES)
+@pytest.mark.parametrize("use_bias,relu", [(True, True), (False, False), (True, False)])
+def test_sm90n_conv_matches_plain(card, shape, cout, use_bias, relu):
+    cin = shape[-1]
+    assert cuda_conv.conv3d_route(cin, cout, torch.bfloat16) == "sm90n"
+    rng = np.random.default_rng(17)
+    x = torch.tensor(rng.normal(0, 1, shape).astype(np.float32), device=card).to(torch.bfloat16)
+    k = torch.tensor(rng.normal(0, 1, (3, 3, 3, cin, cout)).astype(np.float32) / np.sqrt(27 * cin),
+                     device=card).to(torch.bfloat16)
+    b = torch.tensor(rng.normal(0, 0.5, (cout,)).astype(np.float32), device=card) if use_bias else None
+    before, before_n = cuda_conv.conv3d.launches, cuda_conv.conv3d.launches_sm90n
+    got = cuda_conv.conv3d(x, k, b, relu=relu, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert cuda_conv.conv3d.launches == before + 1
+    assert cuda_conv.conv3d.launches_sm90n == before_n + 1
+    want = cuda_conv.conv3d_reference(x, k, b, relu=relu, out_dtype=torch.float32)
+    torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
+    got_bf16 = cuda_conv.conv3d(x, k, b, relu=relu, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert cuda_conv.conv3d.launches_sm90n == before_n + 2
+    assert got_bf16.dtype == torch.bfloat16
+    torch.testing.assert_close(got_bf16.float(), got.to(torch.bfloat16).float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("shape,cout", [((1, 3, 9, 37, 144), 48), ((1, 3, 9, 37, 24), 2)])
+def test_sm90n_uncounted_launches(card, shape, cout):
+    """The measurements' launches at sm90n shapes: the wmma build agrees
+    with the sm90n route, the loads-only build runs to its end, and neither
+    moves a launch count."""
+    cin = shape[-1]
+    rng = np.random.default_rng(19)
+    x = torch.tensor(rng.normal(0, 1, shape).astype(np.float32), device=card).to(torch.bfloat16)
+    k = torch.tensor(rng.normal(0, 1, (3, 3, 3, cin, cout)).astype(np.float32) / np.sqrt(27 * cin),
+                     device=card).to(torch.bfloat16)
+    b = torch.tensor(rng.normal(0, 0.5, (cout,)).astype(np.float32), device=card)
+    want = cuda_conv.conv3d(x, k, b, relu=True, out_dtype=torch.float32)
+    before = {r: getattr(cuda_conv.conv3d, f"launches_{r}") for r in cuda_conv.ROUTES}
+    got = cuda_conv.launch(x, k, b, route="wmma", relu=True, out_dtype=torch.float32)
+    cuda_conv.launch(x, k, b, route="sm90n", relu=True, out_dtype=torch.bfloat16, loads_only=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
+    assert {r: getattr(cuda_conv.conv3d, f"launches_{r}") for r in cuda_conv.ROUTES} == before
+
+
+def test_sm90n_conv_refuses_misaligned_input(card):
+    """A storage offset of one bf16 element breaks TMA's 16-byte alignment:
+    the wrapper raises, it does not fall back to another kernel."""
+    shape = (1, 3, 5, 9, 24)
+    base = torch.zeros(int(np.prod(shape)) + 1, device=card, dtype=torch.bfloat16)
+    x = base[1:].view(shape)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    k = torch.zeros((3, 3, 3, 24, 48), device=card, dtype=torch.bfloat16)
+    before = {r: getattr(cuda_conv.conv3d, f"launches_{r}") for r in cuda_conv.ROUTES}
+    with pytest.raises(ValueError, match="aligned"):
+        cuda_conv.conv3d(x, k)
+    assert {r: getattr(cuda_conv.conv3d, f"launches_{r}") for r in cuda_conv.ROUTES} == before
+
+
 # x shapes (B, D, H, W) for the cin1 route (bf16, Cin = 1). W = 41 and 130
 # (rows not a multiple of 16 bytes) take the cp.async box and W = 64 and 600
 # the TMA box; ragged sizes, batches of 2, rows cut into x chunks that do
@@ -381,13 +477,15 @@ def test_distance_was_build_agrees_uncounted(card):
 
 # the conv under autograd (`Conv3dFn`): (x shape, Cout, dtype) on every
 # route a trainer's forward or data gradient takes: wmma both ways (ragged
-# at B = 2; the GradICON enc0a's 2 -> 24, whose data gradient is 24 -> 2),
-# the UNet's enc0b (sm90 forward 32 -> 64, wmma data gradient 64 -> 32),
-# sm90 both ways at B = 2, cin1 forward (Cin = 1: no data gradient), f32
-# both ways
+# at B = 2), the GradICON enc0a (wmma forward 2 -> 24, sm90n data gradient
+# 24 -> 2), its dec1a (sm90n both ways, 144 -> 48 and 48 -> 144), the
+# UNet's enc0b (sm90 forward 32 -> 64, sm90n data gradient 64 -> 32), sm90
+# both ways at B = 2, cin1 forward (Cin = 1: no data gradient), f32 both
+# ways
 TRAIN_CASES = [
     ((2, 4, 6, 8, 5), 7, torch.bfloat16),
     ((1, 4, 8, 16, 2), 24, torch.bfloat16),
+    ((1, 4, 8, 32, 144), 48, torch.bfloat16),
     ((2, 4, 8, 32, 32), 64, torch.bfloat16),
     ((2, 4, 8, 32, 64), 64, torch.bfloat16),
     ((2, 4, 8, 32, 1), 32, torch.bfloat16),
