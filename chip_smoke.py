@@ -5,8 +5,9 @@
 Phases, each fatal on failure (exit code 1, no result line):
 
 1. build: compile the hand-written kernels in `oai_analysis_2_tpu_torch/csrc/`
-   (one nvcc per source, all started together) and print the card's name
-   and power limit as nvidia-smi gives them;
+   (one nvcc per source, all started together) and the host-geometry
+   library `oai_analysis_2_tpu_torch/native/native.cpp` (g++), and print
+   the card's name and power limit as nvidia-smi gives them;
 2. kernels: hold each kernel against its plain PyTorch version on the card at
    the shapes the main path gives it, and time the kernel, the plain version
    and (where one exists) one PyTorch library call computing the same
@@ -17,15 +18,17 @@ Phases, each fatal on failure (exit code 1, no result line):
    `sm90n` at the segmentation trainer's enc0b data gradient (64 -> 32 at
    2x32x128x128; its other shapes are phase 11's), the f32 kernel at each
    of the ten convs of the finest GradICON stage (from the stage spec, at
-   their grid sizes); the wmma build serves only Cin % 8 != 0. A bf16 conv is checked with f32 output and with the bf16
+   their grid sizes), the mma.sync kernel `cinsmall` at the bf16 GradICON
+   trainer's enc0a forward (2 -> 24 at 1x48x96x96); the wmma build serves
+   no path. A bf16 conv is checked with f32 output and with the bf16
    output the main path takes (each its own build of the kernel); enc0b
    (sm90) and enc0a (cin1) are checked once more on the batch-norm UNet's
    route, without ReLU and with f32 output (rows named `...:bn`), and
    enc0b, dec2a, enc1b, enc3b (sm90) and enc0a (cin1) once more at the
    knee batch's shapes (rows named `...:b16`: 16 tiles of 32x128x128 a
    step, the training tiling that two knees take). At each unbatched
-   sm90, sm90n and cin1 shape it also times the wmma build (which ran those
-   convs before) and the sm90 or sm90n kernel's loads-only or the cin1
+   sm90, sm90n, cin1 and cinsmall shape it also times the wmma build (which
+   ran those convs before) and the sm90 or sm90n kernel's loads-only or the cin1
    kernel's stores-only and general-path builds; at each f32 shape and at the
    distance shape, the build that the kernel replaced (`was_ms`, uncounted
    launches);
@@ -37,8 +40,16 @@ Phases, each fatal on failure (exit code 1, no result line):
    network mode. The knee runs twice; the launch counts are zeroed just
    before the second run and read just after it, and that run is reported:
    the sm90 route must have taken 13 bf16 conv launches per cin1 (enc0a)
-   launch, and the wmma build and the sm90n kernel none. Then the thickness stage runs once
-   more, timed per substage, and the knee once more under torch.profiler
+   launch, and the wmma build and the sm90n and cinsmall kernels none; the
+   thickness stage's component filter (one call a tissue) and smoothing
+   table (one adjacency and one fill) must have gone through the
+   host-geometry library `native`, as in phases 6, 8, 9 (b) and 10 (b)
+   and on the bench's JSON line. Then the thickness stage runs once
+   more, timed per substage; on its filtered meshes (and their union) the
+   native adjacency, table and components are held against the plain
+   numpy / scipy versions (equal degrees and neighbour sets, the table of
+   the plain CSR in the same order, the same partition) and both are
+   timed; and the knee runs once more under torch.profiler
    (the device's busy share and its milliseconds by kernel), which must
    show the enc0a, f32 conv and distance time in their kernels and none in
    the builds those replaced.
@@ -127,19 +138,21 @@ Phases, each fatal on failure (exit code 1, no result line):
    build's and the loads-only build's); (b) 3 f32 steps of the GradICON
    and UNet train steps on the card against the CPU; (c) 20 steps of the
    w24 GradICON recipe: launches a step exactly as `conv3d_route` gives
-   them (12 sm90 + 12 wmma + 96 sm90n forward, 116 sm90n data gradients),
-   the checkpoint reloaded bit-equal, one step under torch.profiler; (d) 5
-   segmentation steps on the production UNet (13 sm90 + 1 cin1 forward,
-   12 sm90 + 1 sm90n data gradients a step, no wmma), the loss falling.
+   them (12 sm90 + 12 cinsmall + 96 sm90n forward, 116 sm90n data
+   gradients, no wmma), the checkpoint reloaded bit-equal, one step under
+   torch.profiler; (d) 5 segmentation steps on the production UNet (13
+   sm90 + 1 cin1 forward, 12 sm90 + 1 sm90n data gradients a step, no
+   wmma), the loss falling.
 
 Before the last line it prints one JSON object `{"kernels": [...]}` (per
 kernel and conv route: launches on the reported run, max error against the
 plain version, kernel / plain / library milliseconds and the bound; sm90,
-sm90n, cin1, f32 and distance rows add the replaced build's milliseconds,
-sm90 and sm90n rows the loads-only build's, the cin1 row the stores-only
-build's; the `:bn` rows count the launches of phase 8 (d), the `:b16` rows
-those of phase 10 (b), phase 2's sm90n row those of phase 11 (d), the
-`:train.` and `:dgrad` rows those of phase 11), then the card line.
+sm90n, cin1, cinsmall, f32 and distance rows add the replaced build's
+milliseconds, sm90 and sm90n rows the loads-only build's, the cin1 row the
+stores-only build's; the `:bn` rows count the launches of phase 8 (d), the
+`:b16` rows those of phase 10 (b), phase 2's sm90n row those of phase 11
+(d), its cinsmall row those of phase 11 (c), the `:train.` and `:dgrad`
+rows those of phase 11), then the card line.
 The last line is `{"ok": true, "device": {...}}`. Without a CUDA card it
 exits with code 1 and prints no result. It imports nothing of JAX.
 """
@@ -191,9 +204,13 @@ BATCH_CONVS = [
 REG_GRID = (48, 96, 96)  # the registration grid; the finest stage (scale 1) runs on it
 REG_WIDTH = 24  # the shipped GradICON's stage width (oai_analysis_2_tpu/weights/gradicon.npz)
 DIST_SHAPE = (32_500, 65_000)  # points x triangles, production mesh sizes
+# the bf16 GradICON trainer's enc0a forward (the two images in, Cin 2), the
+# cinsmall kernel's shape on the main path: (name, x shape, Cin, Cout)
+CINSMALL_CONV = ("gradicon.stage2.enc0a", (1,) + REG_GRID, 2, REG_WIDTH)
 CONV_SOURCES = {"sm90": "oai_analysis_2_tpu_torch/csrc/conv3d_sm90.cu",
                 "sm90n": "oai_analysis_2_tpu_torch/csrc/conv3d_sm90n.cu",
                 "cin1": "oai_analysis_2_tpu_torch/csrc/conv3d_cin1.cu",
+                "cinsmall": "oai_analysis_2_tpu_torch/csrc/conv3d_cinsmall.cu",
                 "wmma": "oai_analysis_2_tpu_torch/csrc/conv3d.cu",
                 "f32": "oai_analysis_2_tpu_torch/csrc/conv3d_f32.cu"}
 
@@ -259,30 +276,55 @@ def check_close(name, got, want, atol, rtol) -> float:
 
 
 def reset_launches(cuda_conv, cuda_kernels):
+    from oai_analysis_2_tpu_torch import native
+
     cuda_conv.reset_launches()
     cuda_kernels.point_triangle_min_d2.launches = 0
+    native.reset_calls()
 
 
 def read_launches(cuda_conv, cuda_kernels) -> dict:
+    """The kernels' launches and the host-geometry library's calls
+    (`native_<binding>`) since `reset_launches`."""
+    from oai_analysis_2_tpu_torch import native
+
     return {
+        **{f"native_{name}": n for name, n in native.read_calls().items()},
         "conv3d_sm90": cuda_conv.conv3d.launches_sm90,
         "conv3d_sm90n": cuda_conv.conv3d.launches_sm90n,
         "conv3d_cin1": cuda_conv.conv3d.launches_cin1,
+        "conv3d_cinsmall": cuda_conv.conv3d.launches_cinsmall,
         "conv3d_wmma": cuda_conv.conv3d.launches_wmma,
         "conv3d_f32": cuda_conv.conv3d.launches_f32,
         "point_triangle": cuda_kernels.point_triangle_min_d2.launches,
     }
 
 
+# the host-geometry library's calls a knee's thickness stage makes: the
+# component filter once a tissue, one smoothing table (adjacency and fill)
+# for the knee's FC + TC union; the port never asks for the bare edge list
+NATIVE_CALLS = {"native_connected_components": 2, "native_smooth_adjacency": 1, "native_fill_table": 1,
+                "native_mesh_edges": 0}
+
+
+def check_native(launches, knees, what):
+    """The thickness stage of `knees` knees went through `native`, exactly
+    as `NATIVE_CALLS` counts a knee."""
+    got = {k: v for k, v in launches.items() if k.startswith("native_")}
+    want = {k: knees * v for k, v in NATIVE_CALLS.items()}
+    if got != want:
+        raise AssertionError(f"{what}: host-geometry library calls {got}, want {want}")
+
+
 def check_bf16_routes(launches, what):
     """Each UNet forward runs 14 bf16 convs, enc0a's alone on the cin1
-    route; no serving conv reaches the wmma build or the sm90n kernel (that
-    kernel serves the trainers' narrow convs)."""
+    route; no serving conv reaches the wmma build or the sm90n and cinsmall
+    kernels (those serve the trainers' narrow convs)."""
     if launches["conv3d_sm90"] != 13 * launches["conv3d_cin1"] or launches["conv3d_wmma"] != 0 \
-            or launches["conv3d_sm90n"] != 0:
+            or launches["conv3d_sm90n"] != 0 or launches["conv3d_cinsmall"] != 0:
         raise AssertionError(f"{what}: sm90 route took {launches['conv3d_sm90']} bf16 conv launches, want 13 per "
                              f"enc0a launch ({launches['conv3d_cin1']}); wmma took {launches['conv3d_wmma']}, "
-                             f"sm90n {launches['conv3d_sm90n']}, want 0")
+                             f"sm90n {launches['conv3d_sm90n']}, cinsmall {launches['conv3d_cinsmall']}, want 0")
 
 
 def unet_convs(spec, shape, prefix):
@@ -337,8 +379,9 @@ def conv_case(torch, F, cuda_conv, name, shape, cin, cout, dtype, tol, reps, clo
     b = None if dgrad else torch.randn((cout,), device="cuda", generator=gen) * 0.1
     want = cuda_conv.conv3d_reference(x, k, b, relu=relu, out_dtype=torch.float32)
     # f32 output: the kernel's f32 accumulator and epilogue, held at 1e-4
-    # where K is short (cin1: 27 products) or the operands are f32
-    f32_tol = 1e-4 if route in ("cin1", "f32") else tol
+    # where K is short (cin1: 27 products, cinsmall: 27 Cin) or the operands
+    # are f32
+    f32_tol = 1e-4 if route in ("cin1", "cinsmall", "f32") else tol
     got = cuda_conv.conv3d(x, k, b, relu=relu, out_dtype=torch.float32)
     err = err_f32 = check_close(f"conv3d {name} (f32 out)", got, want, f32_tol, f32_tol)
     del got
@@ -408,6 +451,36 @@ def conv_case(torch, F, cuda_conv, name, shape, cin, cout, dtype, tol, reps, clo
             "general_ms": time_ms(torch, lambda: cuda_conv.launch(x, k, b, route="cin1", relu=True,
                                                                    out_dtype=dtype, general=True), reps),
         }
+    if route == "cinsmall" and others:
+        # uncounted launches at the same shape: the wmma build, which ran
+        # this conv before the cinsmall route, and the kernel's C call alone
+        # (weights laid out once, none of the wrapper's checks): its time
+        # between CUDA events, and its device time under torch.profiler
+        # (both the kernel's own where the wrapper's host time exceeds it)
+        from oai_analysis_2_tpu_torch.ops.cuda_build import load_library
+
+        fn = load_library("conv3d_cinsmall").conv3d_cinsmall  # argtypes set by the launches above
+        wt, out = cuda_conv.cinsmall_weights(k), torch.empty(shape + (cout,), dtype=out_dtype, device="cuda")
+        args = [x.data_ptr(), wt.data_ptr(), b.data_ptr(), out.data_ptr(), *shape, cin, cout, int(relu),
+                int(out_dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream]
+        call_ms = time_ms(torch, lambda: fn(*args), reps)
+        if fn(*args) != 0:
+            raise AssertionError("conv3d_cinsmall: the C call failed")
+        # the kernel's own device time: `reps` C calls under torch.profiler
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn(*args)
+            torch.cuda.synchronize()
+        device_ms = sum(us for n, us in device_spans(prof)[2].items() if "conv3d_cinsmall_kernel" in n) / reps / 1e3
+        if not device_ms > 0:
+            raise AssertionError("conv3d_cinsmall: the profiler saw no device time in its kernel")
+        check_close(f"conv3d {name} (C call)", out, cuda_conv.conv3d(x, k, b, relu=relu, out_dtype=out_dtype), 0, 0)
+        extra = {"was_ms": time_ms(torch, lambda: cuda_conv.launch(x, k, b, route="wmma", relu=relu,
+                                                                    out_dtype=dtype), reps),
+                 "call_ms": call_ms, "device_ms": device_ms}
+        del wt, out
     del x, k, b, x_cl, w_cl
     torch.cuda.empty_cache()
     return {
@@ -567,6 +640,58 @@ def device_spans(prof):
     return spans, busy_us, by_name
 
 
+def native_check(maps) -> dict:
+    """Phase 4: the host-geometry library against its plain versions on the
+    full-size knee's meshes. Per tissue, on the marching-cubes mesh, the
+    union-find components against scipy's (the same partition); on the
+    filtered meshes and on their union (what the smoothing takes) the CSR
+    adjacency against the plain edge list (equal degrees, each row the
+    vertex's neighbour set, ascending) and the table against the plain
+    table of the CSR-ordered edge list (equal). Each side timed on the
+    host. Fatal on any difference."""
+    from oai_analysis_2_tpu_torch.mesh import components
+    from oai_analysis_2_tpu_torch.mesh import ops as mops
+    from oai_analysis_2_tpu_torch.mesh.marching_cubes import marching_cubes_multi
+    from oai_analysis_2_tpu_torch.mesh.processing import _as_xyz, _spacing
+    from oai_analysis_2_tpu_torch.mesh.types import Mesh
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        return fn(), time.perf_counter() - t0
+
+    raws = marching_cubes_multi([_as_xyz(m) for m in maps], 0.5, _spacing(maps[0]))
+    out, filtered = {}, []
+    for name, raw in zip(("fc", "tc"), raws):
+        uf, uf_s = timed(lambda: components._union_find_labels(raw.n_points, raw.faces))
+        sp, sp_s = timed(lambda: components.scipy_component_labels(raw.n_points, raw.faces))
+        n_uf, n_sp = len(np.unique(uf)), len(np.unique(sp))
+        if not len(np.unique(np.stack([uf, sp], 1), axis=0)) == n_uf == n_sp:
+            raise AssertionError(f"native components of the {name} mesh: {n_uf} components, scipy {n_sp}, "
+                                 "not the same partition")
+        filtered.append(components.filter_small_components(raw, 3000))
+        out[name] = {"raw_points": raw.n_points, "components": n_uf, "components_native_s": uf_s,
+                     "components_scipy_s": sp_s}
+    offset = filtered[0].n_points
+    both = Mesh(np.concatenate([m.vertices for m in filtered]),
+                np.concatenate([filtered[0].faces, filtered[1].faces + offset]).astype(np.int32))
+    for name, mesh in (("fc", filtered[0]), ("tc", filtered[1]), ("union", both)):
+        (deg, nbr), csr_s = timed(lambda: mops._csr_adjacency(mesh))
+        nv = mesh.n_points + 1
+        tbl, fill_s = timed(lambda: mops._table_from_csr(deg, nbr, nv, mops._table_width(deg.max()), nv - 1))
+        (src, dst, pdeg), adj_s = timed(lambda: mops._adjacency(mesh))
+        order = np.lexsort((dst, src))
+        plain, table_s = timed(lambda: mops._neighbor_table(src[order], dst[order], nv, nv - 1))
+        if not np.array_equal(deg, pdeg.astype(np.int64)) or not np.array_equal(nbr, dst[order]):
+            raise AssertionError(f"native adjacency of the {name} mesh: degrees or neighbour sets differ from the "
+                                 "plain version's")
+        if tbl.shape != plain.shape or not np.array_equal(tbl, plain):
+            raise AssertionError(f"native table of the {name} mesh differs from the plain CSR-ordered table")
+        out.setdefault(name, {}).update(points=mesh.n_points, faces=mesh.n_cells, table_k=int(tbl.shape[1]),
+                                        adjacency_native_s=csr_s, table_native_s=fill_s, adjacency_plain_s=adj_s,
+                                        table_plain_s=table_s)
+    return out
+
+
 def profile_knee(torch, pipe, knee) -> dict:
     """One more run of the knee under torch.profiler: the device's busy time
     (union of its event intervals) against the run's wall time, and device
@@ -699,6 +824,7 @@ def accurate_knee(torch, cuda_conv, cuda_kernels, base, knee, name, kwargs) -> d
     if not quality or not all(np.isfinite(v) for v in quality.values()):
         raise AssertionError(f"({name}) registration quality missing or non-finite: {quality}")
     check_bf16_routes(launches, f"({name}) knee")
+    check_native(launches, 1, f"({name}) knee")
     for kname in ("conv3d_sm90", "conv3d_cin1", "point_triangle"):
         if launches[kname] <= 0:
             raise AssertionError(f"({name}) kernel {kname} was not launched on the main path")
@@ -727,8 +853,8 @@ def accurate_knee(torch, cuda_conv, cuda_kernels, base, knee, name, kwargs) -> d
 RELEASE_ATLAS = "atlas_60_LEFT_baseline_NMI"
 # phase 8 (b): the CLI knee's launches (5 z-slabs x 14 bf16 convs, the
 # network's 60 f32 convs, 2 tissues x 2 distance directions)
-CLI_LAUNCHES = {"conv3d_sm90": 65, "conv3d_sm90n": 0, "conv3d_cin1": 5, "conv3d_wmma": 0, "conv3d_f32": 60,
-                "point_triangle": 4}
+CLI_LAUNCHES = {"conv3d_sm90": 65, "conv3d_sm90n": 0, "conv3d_cin1": 5, "conv3d_cinsmall": 0, "conv3d_wmma": 0,
+                "conv3d_f32": 60, "point_triangle": 4, **NATIVE_CALLS}
 
 
 def reference_state_dict(torch, params: dict, n_dec: int) -> dict:
@@ -870,7 +996,8 @@ def release_layout(torch, cuda_conv, cuda_kernels, base, knee, ref) -> dict:
     torch.cuda.synchronize()
     mapper_s = time.perf_counter() - t0
     mapper_launches = read_launches(cuda_conv, cuda_kernels)
-    if any(mapper_launches[k] for k in ("conv3d_sm90", "conv3d_sm90n", "conv3d_cin1", "conv3d_wmma", "conv3d_f32")):
+    if any(mapper_launches[k] for k in ("conv3d_sm90", "conv3d_sm90n", "conv3d_cin1", "conv3d_cinsmall",
+                                        "conv3d_wmma", "conv3d_f32")):
         raise AssertionError(f"the atlas mapper segmented the atlas: {mapper_launches}")
     atlas_dir_out = root / "out_atlas"
     for _ in range(2):
@@ -1097,6 +1224,11 @@ def cohort_from_disk(torch, cuda_conv, cuda_kernels, cli_ref) -> dict:
            if not isinstance(bench.get(k), (int, float)) or not math.isfinite(bench[k]) or not bench[k] > 0]
     if bad or any(k.startswith("projected") for k in bench):
         raise AssertionError(f"bench line: batched keys missing, not finite or not positive: {bad}")
+    # its three timed knees' thickness stages went through the host-geometry library
+    want = {k[len("native_"):]: 3 * v for k, v in NATIVE_CALLS.items()}
+    if bench.get("native_calls_3_knees") != want:
+        raise AssertionError(f"bench line: host-geometry library calls {bench.get('native_calls_3_knees')}, "
+                             f"want {want}")
     out["bench"] = bench
     t0 = time.perf_counter()
     report = last_json(run_child([sys.executable, "-m", "oai_analysis_2_tpu_torch", "prewarm",
@@ -1104,10 +1236,11 @@ def cohort_from_disk(torch, cuda_conv, cuda_kernels, cli_ref) -> dict:
     out["prewarm_command_s"] = time.perf_counter() - t0
     from oai_analysis_2_tpu_torch.ops import cuda_build
 
-    if report.get("compile_cache_entries_after") != len(cuda_build.EXTRA_FLAGS) or \
+    # every kernel library and the host-geometry library
+    if report.get("compile_cache_entries_after") != len(cuda_build.EXTRA_FLAGS) + 1 or \
             not (report.get("first_knee_seconds") or 0) > 0:
-        raise AssertionError(f"prewarm report: want {len(cuda_build.EXTRA_FLAGS)} kernel libraries after "
-                             f"and a first knee that took time, got {report}")
+        raise AssertionError(f"prewarm report: want {len(cuda_build.EXTRA_FLAGS)} kernel libraries and the "
+                             f"host-geometry library after and a first knee that took time, got {report}")
     out["prewarm"] = report
     return out
 
@@ -1123,7 +1256,8 @@ BENCH_BATCH_KEYS = (
 # phase 10 (b): the batched path's launches on two knees: 20 steps of 16
 # tiles through the 14 bf16 convs (enc0a on cin1), the network's 60 f32
 # convs a knee, 2 tissues x 2 directions of the distance a knee
-BATCH_LAUNCHES = {"conv3d_sm90": 2 * 130, "conv3d_sm90n": 0, "conv3d_cin1": 2 * 10, "conv3d_wmma": 0,
+BATCH_LAUNCHES = {"conv3d_sm90": 2 * 130, "conv3d_sm90n": 0, "conv3d_cin1": 2 * 10, "conv3d_cinsmall": 0,
+                  **{k: 2 * v for k, v in NATIVE_CALLS.items()}, "conv3d_wmma": 0,
                   "conv3d_f32": 2 * 60, "point_triangle": 8}
 
 
@@ -1498,6 +1632,10 @@ def conv_train_case(torch, cuda_conv, name, shape, cin, cout, dtype, reps, dgrad
         "wgrad_bound_ms": max(w_ops, w_bytes / HBM_BYTES_PER_S * 1e3),
         "tflops": 2.0 * 27 * cin * cout * voxels / fwd_ms * 1e-9,
     }
+    if route == "cinsmall":
+        # uncounted: the wmma build that ran this conv before
+        fwd["was_ms"] = time_ms(torch, lambda: cuda_conv.launch(x, k, b, route="wmma", relu=True, out_dtype=dtype),
+                                reps)
     if route == "sm90n":
         # uncounted: the wmma build that ran this conv before, the load pipeline alone
         fwd["was_ms"] = time_ms(torch, lambda: cuda_conv.launch(x, k, b, route="wmma", relu=True, out_dtype=dtype),
@@ -1730,6 +1868,11 @@ def gradicon_training(torch, cuda_conv, tmp_root) -> dict:
     want = {k: v for k, v in want.items() if not k.endswith("f32")}
     if per_step != want or launches["fwd_f32"] != 30 or launches["dgrad_f32"] != 0:
         raise AssertionError(f"GradICON training launches a step {per_step}, want {want}; f32 {launches}")
+    # enc0a's forward (Cin 2) on the cinsmall kernel, nothing on the wmma build
+    if per_step["fwd_cinsmall"] != 12 or launches["fwd_wmma"] != 0 or launches["dgrad_wmma"] != 0:
+        raise AssertionError(f"GradICON training: {per_step['fwd_cinsmall']} cinsmall launches a step (want 12), "
+                             f"wmma {launches['fwd_wmma']} forward and {launches['dgrad_wmma']} data gradients "
+                             "(want 0)")
     params, meta = load_gradicon_checkpoint(out)
     trained = flatten_tree({f"stage{k}": p for k, p in enumerate(summary["model"].params_list())})
     for key, v in flatten_tree({f"stage{k}": p for k, p in enumerate(params)}).items():
@@ -1767,7 +1910,7 @@ def gradicon_training(torch, cuda_conv, tmp_root) -> dict:
 
 def profile_train_step(torch, fn) -> dict:
     """One training step under torch.profiler: wall, the device's busy time
-    and device ms by kernel family: the conv kernels (wmma, sm90, sm90n, cin1, f32;
+    and device ms by kernel family: the conv kernels (wmma, sm90, sm90n, cin1, cinsmall, f32;
     forward and data gradient share a kernel), everything else by name."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1781,7 +1924,7 @@ def profile_train_step(torch, fn) -> dict:
     spans, busy_us, by_name = device_spans(prof)
     families = {"conv3d_wmma": "conv3d_bf16_kernel", "conv3d_sm90": "conv3d_sm90_kernel",
                 "conv3d_sm90n": "conv3d_sm90n_kernel", "conv3d_cin1": "conv3d_cin1_kernel",
-                "conv3d_f32": "conv3d_f32_ring_kernel"}
+                "conv3d_cinsmall": "conv3d_cinsmall_kernel", "conv3d_f32": "conv3d_f32_ring_kernel"}
     fam_us = {fam: sum(us for n, us in by_name.items() if key in n) for fam, key in families.items()}
     rest = {n: us for n, us in by_name.items() if not any(key in n for key in families.values())}
     top = sorted(rest.items(), key=lambda kv: -kv[1])[:10]
@@ -1829,6 +1972,8 @@ def segmentation_training(torch, cuda_conv, pipe, knee) -> dict:
     want = expected_train_counts(cuda_conv, convs, torch.bfloat16, 1, 1)
     if per_step != want:
         raise AssertionError(f"segmentation training launches a step {per_step}, want {want} (no enc0a dgrad)")
+    if launches["fwd_wmma"] != 0 or launches["dgrad_wmma"] != 0:
+        raise AssertionError(f"segmentation training reached the wmma build: {launches}")
     if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
         raise AssertionError(f"segmentation training losses {losses}: want finite and falling")
     moved = flatten_tree(params)
@@ -1901,6 +2046,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch.nn.functional as F
 
+    from oai_analysis_2_tpu_torch import native
     from oai_analysis_2_tpu_torch.bench import FULL, card_line
     from oai_analysis_2_tpu_torch.ops import cuda_build, cuda_conv, cuda_kernels
 
@@ -1914,6 +2060,9 @@ def main() -> int:
     t0 = time.perf_counter()
     cuda_build.build_all()
     log(f"phase build: {len(cuda_build.EXTRA_FLAGS)} kernel libraries built and loaded in "
+        f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    log(f"phase build: host-geometry library {native.build()} built with g++ and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
 
     # ---- 2. kernels against their plain versions -----------------------------
@@ -1935,6 +2084,9 @@ def main() -> int:
     # 2 x 32x128x128), the sm90n kernel at the widest input it takes
     kernels.append(conv_case(torch, F, cuda_conv, "unet.enc0b:dgrad", TRAIN_TILE, 64, 32, torch.bfloat16, 2e-2,
                              reps=10, dgrad=True))
+    # the bf16 GradICON trainer's enc0a forward (2 -> 24 at 1x48x96x96), the
+    # cinsmall kernel; 20 reps, as its time is a few tens of microseconds
+    kernels.append(conv_case(torch, F, cuda_conv, *CINSMALL_CONV, torch.bfloat16, 2e-2, reps=20))
     kernels += [conv_case(torch, F, cuda_conv, name, shape, cin, cout, torch.float32, 1e-4, reps=20,
                           clock=name == "stage2.dec1a")
                 for name, shape, cin, cout in gradicon_convs()]
@@ -1944,6 +2096,8 @@ def main() -> int:
         more += f", loads alone {k['loads_ms']:.3f} ms" if "loads_ms" in k else ""
         more += f", stores alone {k['stores_ms']:.3f} ms" if "stores_ms" in k else ""
         more += f", general paths {k['general_ms']:.3f} ms" if "general_ms" in k else ""
+        more += f", C call alone {k['call_ms']:.4f} ms" if "call_ms" in k else ""
+        more += f", device time (profiler) {k['device_ms']:.4f} ms" if "device_ms" in k else ""
         more += f", multiplies alone {k['compute_ms']:.3f} ms" if "compute_ms" in k else ""
         more += f", SM clock {k['sm_clock_mhz']} MHz at {k['power_w']} W" if "sm_clock_mhz" in k else ""
         log(f"phase kernels: {k['name']} [{k['shape']}] max_abs_err {k['max_abs_err']:.3g} "
@@ -1990,9 +2144,11 @@ def main() -> int:
     if not quality or not all(np.isfinite(v) for v in quality.values()):
         raise AssertionError(f"registration quality missing or non-finite: {quality}")
     for name, n in launches.items():
-        if name not in ("conv3d_wmma", "conv3d_sm90n") and n <= 0:
+        if name not in ("conv3d_wmma", "conv3d_sm90n", "conv3d_cinsmall") and not name.startswith("native_") \
+                and n <= 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
     check_bf16_routes(launches, "full knee")
+    check_native(launches, 1, "full knee")
     for k in kernels:
         k["launches"] = launches[k["name"].split(":")[0]]
 
@@ -2013,6 +2169,8 @@ def main() -> int:
     substages = {}
     get_thickness_meshes([result.fc_probmap, result.tc_probmap], ["FC", "TC"], timings_out=substages)
     log(f"phase full knee: thickness substage seconds {json.dumps(substages)}")
+    native_report = native_check([result.fc_probmap, result.tc_probmap])
+    log(f"phase full knee: the host-geometry library against its plain versions {json.dumps(native_report)}")
     profiled = profile_knee(torch, pipe, knee)
     log(f"phase full knee: profiled run {json.dumps(profiled)}")
     device_ms = profiled["kernel_device_ms"]
@@ -2091,13 +2249,16 @@ def main() -> int:
             k["launches_by_path"][path] = sum(v for key, v in counts.items() if key.endswith(f"_{route}"))
         if route == "sm90n":  # phase 2's data-gradient row: the launches of (d)'s 5 steps
             k["launches"] = int(train["d"]["launches_per_step"]["dgrad_sm90n"] * SEG_TRAIN_STEPS)
+        if route == "cinsmall":  # phase 2's enc0a row: the launches of (c)'s 20 steps
+            k["launches"] = int(train["c"]["launches_per_step"]["fwd_cinsmall"] * TRAIN_STEPS)
     for k in kernels[n_before:]:
         log(f"phase training: {k['name']} [{k['shape']}] errs {json.dumps(k.get('grad_errs', k['max_abs_err']))} "
             f"kernel {k['ms']:.3f} ms, plain {k['plain_ms']:.3f} ms, library {k['library_ms']:.3f} ms, "
             f"bound {k['bound_ms']:.3f} ms ({k['bound_by']}), launches {k['launches']}"
             + (f", weight gradient {k['wgrad_ms']:.3f} ms (bound {k['wgrad_bound_ms']:.3f})"
                if "wgrad_ms" in k else "")
-            + (f", was {k['was_ms']:.3f} ms, loads alone {k['loads_ms']:.3f} ms" if "was_ms" in k else ""))
+            + (f", was {k['was_ms']:.3f} ms" if "was_ms" in k else "")
+            + (f", loads alone {k['loads_ms']:.3f} ms" if "loads_ms" in k else ""))
     log(f"phase training ({train['phase_s']:.1f} s, card {card}): {json.dumps(train)}")
 
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -41,6 +41,8 @@ from pathlib import Path
 
 import numpy as np
 
+from oai_analysis_2_tpu_torch import native
+
 BASELINE_KNEES_PER_HOUR = 3600.0 / 148.0  # the reference's Colab GPU pipeline
 SPACING = (0.36, 0.36, 0.7)  # x, y, z mm
 
@@ -274,6 +276,7 @@ def main() -> dict:
         pipe.run(knee)  # warm-up knee
         warm = time.perf_counter() - t_setup
         _reset_peak(pipe.device)
+        native.reset_calls()
 
         def timed_knee():
             t0 = time.perf_counter()
@@ -282,6 +285,7 @@ def main() -> dict:
 
         samples = sorted((timed_knee() for _ in range(3)), key=lambda s: s[0])
         dt, result = samples[1]  # the median sample and its stage seconds
+        native_calls = native.read_calls()
     except Exception as e:  # noqa: BLE001 — report, then fail
         result_json["error"] = f"headline phase failed: {e!r}"
         print(json.dumps(result_json))
@@ -310,6 +314,9 @@ def main() -> dict:
         "stage_seconds": {k: v["seconds"] for k, v in result.timings.items()},
         "registration_quality": result.registration_quality,
         "peak_memory_gb": _peak_gb(pipe.device),
+        # the host-geometry library's calls in the three timed knees: the
+        # thickness stage's component filter and smoothing table
+        "native_calls_3_knees": native_calls,
     })
     try:
         result_json.update(batched_phases(pipe, knee, dt, result.timings["segment"]["seconds"]))

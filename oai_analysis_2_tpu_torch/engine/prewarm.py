@@ -2,13 +2,15 @@
 of `oai_analysis_2_tpu/engine/prewarm.py:28-121`).
 
 A fresh process pays, on its first knee, what later knees do not: nvcc
-builds of the kernel libraries that `build/kernels/` lacks (the libraries
-are cached there across processes), loading them, the CUDA context and the
-caching allocator's first large allocations. A long-lived cohort worker
-should pay that at deploy time, so `python -m oai_analysis_2_tpu_torch
-prewarm` (or this function) runs one phantom knee through the full
-pipeline at the production grid: later processes on the host find the
-libraries built, and the calling process is left warm.
+builds of the kernel libraries that `build/kernels/` lacks and the g++
+build of the host-geometry library that `build/native/` lacks (the
+libraries are cached there across processes), loading them, the CUDA
+context and the caching allocator's first large allocations. A
+long-lived cohort worker should pay that at deploy time, so `python -m
+oai_analysis_2_tpu_torch prewarm` (or this function) runs one phantom
+knee through the full pipeline at the production grid: later processes
+on the host find the libraries built, and the calling process is left
+warm.
 """
 
 from __future__ import annotations
@@ -20,12 +22,15 @@ import numpy as np
 
 
 def _built_libraries() -> int:
-    """Kernel libraries present in `build/kernels/` for the current sources
-    and flags (`cuda_build.library_path`), one per name of
-    `cuda_build.EXTRA_FLAGS`."""
+    """Libraries present for the current sources and flags: the kernel
+    libraries in `build/kernels/` (`cuda_build.library_path`, one per name
+    of `cuda_build.EXTRA_FLAGS`) and the host-geometry library in
+    `build/native/` (`native.library_path`)."""
+    from oai_analysis_2_tpu_torch import native
     from oai_analysis_2_tpu_torch.ops import cuda_build
 
-    return sum(cuda_build.library_path(name).exists() for name in cuda_build.EXTRA_FLAGS)
+    kernels = sum(cuda_build.library_path(name).exists() for name in cuda_build.EXTRA_FLAGS)
+    return kernels + int(native.library_path().exists())
 
 
 def prewarm(
@@ -55,6 +60,7 @@ def prewarm(
     if not thickness:
         raise ValueError("prewarm always runs the thickness stage; thickness=False is not supported")
     t0 = time.time()
+    from oai_analysis_2_tpu_torch import native
     from oai_analysis_2_tpu_torch.analysis_object import AnalysisObject
     from oai_analysis_2_tpu_torch.core.image import image_from_array
     from oai_analysis_2_tpu_torch.engine.pipeline import KneePipeline
@@ -65,6 +71,7 @@ def prewarm(
     cache_before = _built_libraries()
 
     t0 = time.time()
+    native.build()
     if analysis_object is None:
         analysis_object = AnalysisObject.offline("phantom:%d,%d,%d" % tuple(shape_zyx), device=device)
     rng = np.random.default_rng(seed)

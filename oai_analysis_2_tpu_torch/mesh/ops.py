@@ -3,9 +3,14 @@ point-to-surface distance (port of `oai_analysis_2_tpu/mesh/ops.py`).
 
 Smoothing is the JAX package's neighbour-table loop (`_smooth_loop`,
 :87-116) on the card: 150 iterations of one (N, K) row gather + sum. Its
-degree-tiered table layout (:119-308), a TPU gather-volume saving that
-gives the same sums, is left out. The distance goes through the
-hand-written point-to-triangle kernel (ops/cuda_kernels.py).
+table comes from the host-geometry library (`native`), as the JAX
+package's does (`_csr_adjacency`, `_table_from_csr`, :172-210): the
+adjacency as CSR in one C++ pass, each vertex's neighbours ascending, and
+a row-by-row table fill. `_adjacency` and `_neighbor_table` are the plain
+numpy versions the tests hold those against. The degree-tiered table
+layout (:119-308), a TPU gather-volume saving that gives the same sums, is
+left out. The distance goes through the hand-written point-to-triangle
+kernel (ops/cuda_kernels.py).
 """
 
 from __future__ import annotations
@@ -13,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from oai_analysis_2_tpu_torch import native
 from oai_analysis_2_tpu_torch.core.device import resolve_device
 from oai_analysis_2_tpu_torch.mesh.types import Mesh
 from oai_analysis_2_tpu_torch.ops.cuda_kernels import point_triangle_distance
@@ -35,10 +41,13 @@ def face_normals(mesh: Mesh, normalized: bool = True) -> np.ndarray:
 def _adjacency(mesh: Mesh):
     """Symmetric edge list (src, dst) and per-vertex degree; boundary
     vertices average only over boundary neighbours (vtkSmoothPolyDataFilter's
-    boundary rule). Numpy path of ops.py:54-84."""
+    boundary rule). Plain numpy version of ops.py:54-84: the unique edges
+    by one 1-D key lo * N + hi (the order of the 2-D unique by rows)."""
     f = mesh.faces.astype(np.int64)
     edges = np.concatenate([f[:, [0, 1]], f[:, [1, 2]], f[:, [2, 0]]], axis=0)
-    uniq, counts = np.unique(np.sort(edges, axis=1), axis=0, return_counts=True)
+    n = max(mesh.n_points, 1)
+    keys, counts = np.unique(edges.min(axis=1) * n + edges.max(axis=1), return_counts=True)
+    uniq = np.stack([keys // n, keys % n], axis=1)
     boundary_edges = uniq[counts == 1]
     is_boundary = np.zeros(mesh.n_points, bool)
     is_boundary[np.unique(boundary_edges)] = True
@@ -53,11 +62,17 @@ def _adjacency(mesh: Mesh):
     return src.astype(np.int32), dst.astype(np.int32), deg
 
 
+def _table_width(max_degree: int) -> int:
+    """K: the max degree rounded up to a power of two, at least 8."""
+    return max(8, 1 << int(np.ceil(np.log2(max(int(max_degree), 1)))))
+
+
 def _neighbor_table(src: np.ndarray, dst: np.ndarray, nv: int, dummy: int):
-    """(nv, K) neighbour table padded with `dummy` (ops.py:155-169); K is
-    the max degree rounded up to a power of two, at least 8."""
+    """(nv, K) neighbour table padded with `dummy` (ops.py:155-169), each
+    row in the edge list's order; K as `_table_width`. The plain version of
+    `_table_from_csr`."""
     deg = np.bincount(src, minlength=nv)
-    k = max(8, 1 << int(np.ceil(np.log2(max(int(deg.max()), 1))))) if len(src) else 8
+    k = _table_width(deg.max()) if len(src) else 8
     order = np.argsort(src, kind="stable")
     ssrc, sdst = src[order], dst[order]
     starts = np.zeros(nv, np.int64)
@@ -65,6 +80,23 @@ def _neighbor_table(src: np.ndarray, dst: np.ndarray, nv: int, dummy: int):
     col = np.arange(len(ssrc)) - starts[ssrc]
     tbl = np.full((nv, k), dummy, np.int64)
     tbl[ssrc, col] = sdst
+    return tbl
+
+
+def _csr_adjacency(mesh: Mesh):
+    """Smoothing adjacency as CSR (deg (N,) int64, nbr (total,) int32) with
+    the boundary rule applied, in one C++ pass (`native.smooth_adjacency`,
+    ops.py:172-188); each vertex's neighbours ascending."""
+    deg, nbr = native.smooth_adjacency(mesh.n_points, mesh.faces)
+    return deg.astype(np.int64), nbr
+
+
+def _table_from_csr(deg, nbr, nv: int, k: int, dummy: int):
+    """(nv, k) int32 neighbour table from CSR, padded with `dummy`, filled
+    row by row in C++ (`native.fill_table`, ops.py:191-210)."""
+    tbl = np.full((nv, k), dummy, np.int32)
+    if len(nbr):
+        native.fill_table(deg, nbr, tbl)
     return tbl
 
 
@@ -91,9 +123,9 @@ def smooth_mesh(mesh: Mesh, num_iterations: int = 150, relaxation: float = 0.01,
     if mesh.n_points == 0:
         return mesh
     dev = resolve_device(device)
-    src, dst, _ = _adjacency(mesh)
+    deg, nbr = _csr_adjacency(mesh)
     nv = mesh.n_points + 1
-    tbl = _neighbor_table(src, dst, nv, nv - 1)
+    tbl = _table_from_csr(deg, nbr, nv, _table_width(deg.max()) if len(nbr) else 8, nv - 1)
     vp = np.zeros((nv, 3), np.float32)
     vp[: mesh.n_points] = mesh.vertices
     out = _smooth_loop(torch.as_tensor(vp, device=dev), torch.as_tensor(tbl, device=dev),

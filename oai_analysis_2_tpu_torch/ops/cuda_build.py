@@ -33,6 +33,7 @@ _COMMON_FLAGS = [
 EXTRA_FLAGS: Dict[str, List[str]] = {
     "conv3d": [],
     "conv3d_cin1": [],
+    "conv3d_cinsmall": [],
     "conv3d_f32": [],
     "conv3d_sm90": [],
     "conv3d_sm90n": [],

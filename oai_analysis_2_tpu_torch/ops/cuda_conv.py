@@ -1,6 +1,7 @@
 """3x3x3 SAME convolution: the wrapper of the Hopper kernels
 `csrc/conv3d_sm90.cu`, `csrc/conv3d_sm90n.cu`, `csrc/conv3d_cin1.cu`,
-`csrc/conv3d_f32.cu` and `csrc/conv3d.cu`, and their plain PyTorch version.
+`csrc/conv3d_cinsmall.cu`, `csrc/conv3d_f32.cu` and `csrc/conv3d.cu`, and
+their plain PyTorch version.
 
 Replaces the TPU kernel `_kernel`/`conv3d_zstack`
 (`oai_analysis_2_tpu/ops/pallas_conv.py:100-243`) and keeps its contract:
@@ -25,8 +26,17 @@ Routes (`conv3d_route`, by channel counts and type alone):
     widths: wgmma N = Cout rounded up to 8 (wider Cout in equal n-tiles),
     channel chunks whose ragged end TMA zero-fills, the tile chosen by
     `sm90n_tile`. It takes the weights as sm90 does;
-  * "wmma": bf16 with Cin % 8 != 0 (the GradICON enc0a forward, Cin 2),
-    the wmma build of `csrc/conv3d.cu`;
+  * "cinsmall": bf16 with Cin 2-4 and Cout % 8 == 0 whose B fragments fit
+    the registers (`cinsmall_takes`: Cout <= 64 at Cin 2; the GradICON
+    enc0a forward, 2 -> 24), the mma.sync kernel of
+    `csrc/conv3d_cinsmall.cu`: cin1's design with K = 27 Cin (tap, channel)
+    columns, the interleaved input box landed by TMA and split into
+    channel-planar copies for ldmatrix, the output staged and stored by
+    bulk copies. It takes the weights as (16 ceil(27 Cin / 16), Cout),
+    re-laid out here per call (`cinsmall_weights`);
+  * "wmma": any other bf16 shape (Cin % 8 != 0 that cinsmall does not
+    take; no path of the port runs one), the wmma build of
+    `csrc/conv3d.cu`;
   * "f32": f32 operands (the GradICON stages), the CUDA-core kernel of
     `csrc/conv3d_f32.cu` (cp.async ring, 8 x 8 register tiles, the tile
     chosen by `f32_tile`).
@@ -36,10 +46,10 @@ launches its route's kernel or raises: no route falls back to another.
 `conv3d.launches` counts every launch, `conv3d.launches_<route>` each
 route's share. `launch` is the uncounted launcher under `conv3d`, open
 to measurements that time a route at another's shape (the wmma build at
-enc0a's or at an sm90n shape), the sm90 or sm90n kernel's loads alone, the
-cin1 kernel's stores alone or
-its general load and store paths, or the f32 build that the "f32" route replaced (route "f32_was", the CUDA-core
-build of `csrc/conv3d.cu`).
+a cin1, cinsmall or sm90n shape: the build those routes replaced), the
+sm90 or sm90n kernel's loads alone, the cin1 kernel's stores alone or
+its general load and store paths, or the f32 build that the "f32" route
+replaced (route "f32_was", the CUDA-core build of `csrc/conv3d.cu`).
 
 Training (`conv3d_train`, `Conv3dFn`): the forward is `conv3d` itself (the
 same route, kernel and epilogue); the data gradient is `conv3d` again, of
@@ -61,7 +71,7 @@ import torch
 import torch.nn.functional as F
 
 _DTYPES = (torch.bfloat16, torch.float32)
-ROUTES = ("sm90", "sm90n", "cin1", "wmma", "f32")
+ROUTES = ("sm90", "sm90n", "cin1", "cinsmall", "wmma", "f32")
 # what `launch` takes: the routes, and the f32 build that the "f32" route
 # replaced (the CUDA-core kernel of csrc/conv3d.cu), which `conv3d` never takes
 BUILDS = ROUTES + ("f32_was",)
@@ -87,7 +97,17 @@ def conv3d_route(cin: int, cout: int, dtype: torch.dtype) -> str:
         return "cin1"
     if cin % 8 == 0:
         return "sm90n"
+    if cinsmall_takes(cin, cout):
+        return "cinsmall"
     return "wmma"
+
+
+def cinsmall_takes(cin: int, cout: int) -> bool:
+    """Whether the cinsmall kernel takes `cin` -> `cout` (bf16): Cin 2-4,
+    Cout a multiple of 8, and its B fragments, ceil(27 Cin / 16) k16 steps
+    x Cout / 8 n-tiles of two registers each, within 64 registers a thread
+    (Cout <= 64 at Cin 2, 40 at Cin 3, 32 at Cin 4)."""
+    return 2 <= cin <= 4 and cout >= 8 and cout % 8 == 0 and -(-27 * cin // 16) * (cout // 8) <= 32
 
 
 def sm90n_stages(bkc: int, bn: int, mw: int) -> int:
@@ -164,6 +184,16 @@ def cin1_weights(kernel: torch.Tensor) -> torch.Tensor:
     kernel's two m16n8k16 steps."""
     cout = kernel.shape[4]
     return F.pad(kernel.reshape(27, cout), (0, 0, 0, 5)).contiguous()
+
+
+def cinsmall_weights(kernel: torch.Tensor) -> torch.Tensor:
+    """DHWIO (3, 3, 3, Cin, Cout) -> (KP, Cout): row tap * Cin + channel with
+    tap = (kz * 3 + ky) * 3 + kx (the DHWIO order), then zero rows up to KP =
+    16 ceil(27 Cin / 16), the K of the cinsmall kernel's k16 steps (64 at
+    Cin 2)."""
+    cin, cout = kernel.shape[3], kernel.shape[4]
+    kp = -(-27 * cin // 16) * 16
+    return F.pad(kernel.reshape(27 * cin, cout), (0, 0, 0, kp - 27 * cin)).contiguous()
 
 
 def conv3d_reference(
@@ -274,6 +304,9 @@ def launch(
         raise ValueError("conv3d: only the cin1 route has a general build")
     if route == "sm90n" and x.shape[-1] % 8:
         raise ValueError(f"conv3d: the sm90n route needs Cin % 8 == 0, got {x.shape[-1]}")
+    if route == "cinsmall" and not cinsmall_takes(x.shape[-1], kernel.shape[-1]):
+        raise ValueError(f"conv3d: the cinsmall route needs Cin 2-4, Cout % 8 == 0 and ceil(27 Cin / 16) * Cout / 8 "
+                         f"<= 32, got {x.shape[-1]}, {kernel.shape[-1]}")
     if x.device.type != "cuda":
         raise ValueError(f"conv3d: unsupported device {x.device}")
     _check(x, kernel, bias, out_dtype)
@@ -306,6 +339,15 @@ def launch(
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         args = [x.data_ptr(), wt.data_ptr(), bias_ptr, out.data_ptr(), b, d, h, w, cout,
                 int(relu), int(out_dtype == torch.bfloat16), int(stores_only), int(general)]
+    elif route == "cinsmall":
+        # the TMA landing and the 16-byte copies need a 16-byte-aligned x; out is a fresh allocation
+        if x.data_ptr() % 16:
+            raise ValueError("conv3d: the cinsmall route needs 16-byte-aligned x (check its storage offset)")
+        wt = cinsmall_weights(kernel)
+        fn = load_library("conv3d_cinsmall").conv3d_cinsmall
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        args = [x.data_ptr(), wt.data_ptr(), bias_ptr, out.data_ptr(), b, d, h, w, cin, cout,
+                int(relu), int(out_dtype == torch.bfloat16)]
     else:
         ptrs = [x.data_ptr(), kernel.data_ptr(), out.data_ptr()] + ([] if bias is None else [bias_ptr])
         vec_ok = int(all(p % 16 == 0 for p in ptrs))

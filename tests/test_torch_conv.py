@@ -158,7 +158,9 @@ def test_gradicon_conv_route(name, kshape):
 @pytest.mark.parametrize("cin,cout,want", [(1, 32, "cin1"), (8, 64, "sm90n"), (16, 48, "sm90n"), (24, 64, "sm90n"),
                                            (16, 64, "sm90"), (96, 192, "sm90"), (1, 8, "cin1"), (1, 16, "cin1"),
                                            (1, 64, "cin1"), (1, 24, "cin1"), (1, 12, "wmma"), (1, 72, "wmma"),
-                                           (2, 32, "wmma")])
+                                           (2, 32, "cinsmall"), (2, 24, "cinsmall"), (2, 64, "cinsmall"),
+                                           (2, 72, "wmma"), (2, 12, "wmma"), (3, 40, "cinsmall"), (3, 48, "wmma"),
+                                           (4, 32, "cinsmall"), (4, 40, "wmma"), (5, 8, "wmma")])
 def test_conv_route_shape_rule(cin, cout, want):
     assert cuda_conv.conv3d_route(cin, cout, torch.bfloat16) == want
 
@@ -166,11 +168,11 @@ def test_conv_route_shape_rule(cin, cout, want):
 @pytest.mark.parametrize("name,kshape", GRADICON_CONVS, ids=[n for n, _ in GRADICON_CONVS])
 def test_gradicon_bf16_conv_routes(name, kshape):
     """The bf16 GradICON trainer's routes, forward and data gradient (the
-    channels swapped): enc0a's forward (Cin 2) alone takes the wmma build,
+    channels swapped): enc0a's forward (Cin 2) takes the cinsmall kernel,
     enc2b's forward (96 -> 192) the sm90 kernel, every other conv both ways
-    the sm90n kernel."""
+    the sm90n kernel; none takes the wmma build."""
     cin, cout = kshape[3], kshape[4]
-    forward = {"enc0a": "wmma", "enc2b": "sm90"}.get(name, "sm90n")
+    forward = {"enc0a": "cinsmall", "enc2b": "sm90"}.get(name, "sm90n")
     assert cuda_conv.conv3d_route(cin, cout, torch.bfloat16) == forward
     assert cuda_conv.conv3d_route(cout, cin, torch.bfloat16) == "sm90n"
 
@@ -218,11 +220,11 @@ def test_launch_has_no_plain_version(route):
 def test_sm90n_launcher_refuses_ragged_cin(cin):
     """Cin % 8 != 0 gives activation rows that TMA cannot address: the
     sm90n launcher refuses it before anything else (such shapes take the
-    wmma build)."""
+    cinsmall kernel at Cin 2-4, the wmma build otherwise)."""
     x, k, _ = _inputs((1, 3, 4, 5, cin), 24)
     with pytest.raises(ValueError, match="Cin % 8"):
         cuda_conv.launch(torch.tensor(x).to(torch.bfloat16), torch.tensor(k).to(torch.bfloat16), route="sm90n")
-    assert cuda_conv.conv3d_route(cin, 24, torch.bfloat16) == "wmma"
+    assert cuda_conv.conv3d_route(cin, 24, torch.bfloat16) == ("cinsmall" if cin <= 4 else "wmma")
 
 
 @pytest.mark.parametrize("shape,cout", [((1, 4, 6, 8, 24), 48), ((1, 4, 6, 8, 48), 24)])
@@ -241,6 +243,67 @@ def test_plain_conv_at_sm90n_shapes_matches_pallas_interpret(shape, cout, relu):
     got = cuda_conv.conv3d(torch.tensor(x).to(torch.bfloat16), torch.tensor(k).to(torch.bfloat16), torch.tensor(b),
                            relu=relu, out_dtype=torch.float32)
     np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("cout", [24, 8])
+def test_plain_conv_at_cinsmall_shapes_matches_pallas_interpret(cout, relu):
+    """The GradICON enc0a's channels (2 -> 24, the cinsmall route) and the
+    narrowest Cout it takes, in bf16: the port's plain conv against the
+    Pallas kernel in interpret mode, within 2e-2 (the same f32 sums in
+    another order)."""
+    shape = (1, 4, 6, 16, 2)
+    x, k, b = _inputs(shape, cout, seed=4)
+    k = k / np.sqrt(27 * shape[-1] / 9)
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    kb = jnp.asarray(k).astype(jnp.bfloat16)
+    want = conv3d_zstack(xb, kb, jnp.asarray(b), relu=relu, out_dtype=jnp.float32,
+                         tz=shape[1] // 2, ty=shape[2] // 2, interpret=True)
+    assert cuda_conv.conv3d_route(shape[-1], cout, torch.bfloat16) == "cinsmall"
+    got = cuda_conv.conv3d(torch.tensor(x).to(torch.bfloat16), torch.tensor(k).to(torch.bfloat16), torch.tensor(b),
+                           relu=relu, out_dtype=torch.float32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("cin,cout", [(2, 24), (3, 16), (4, 32)])
+def test_cinsmall_weight_layout(cin, cout):
+    """(KP, Cout): row tap * Cin + channel, tap = (kz * 3 + ky) * 3 + kx in
+    DHWIO order, zero rows up to KP = 16 ceil(27 Cin / 16), against a
+    layout written out element by element in numpy."""
+    k = np.random.default_rng(cin).normal(size=(3, 3, 3, cin, cout)).astype(np.float32)
+    kp = {2: 64, 3: 96, 4: 112}[cin]
+    want = np.zeros((kp, cout), np.float32)
+    for kz in range(3):
+        for ky in range(3):
+            for kx in range(3):
+                for c in range(cin):
+                    want[((kz * 3 + ky) * 3 + kx) * cin + c] = k[kz, ky, kx, c]
+    wt = cuda_conv.cinsmall_weights(torch.tensor(k).to(torch.bfloat16))
+    assert tuple(wt.shape) == (kp, cout) and wt.is_contiguous() and wt.dtype == torch.bfloat16
+    np.testing.assert_array_equal(wt.float().numpy(), torch.tensor(want).to(torch.bfloat16).float().numpy())
+
+
+@pytest.mark.parametrize("cin,cout,dtype,match", [
+    (2, 24, torch.float32, "route"), (1, 24, torch.bfloat16, "cinsmall"), (8, 24, torch.bfloat16, "cinsmall"),
+    (16, 64, torch.bfloat16, "cinsmall"), (5, 24, torch.bfloat16, "cinsmall"), (2, 12, torch.bfloat16, "cinsmall"),
+    (2, 72, torch.bfloat16, "cinsmall"), (4, 40, torch.bfloat16, "cinsmall"),
+])
+def test_cinsmall_launcher_refuses_other_calls(cin, cout, dtype, match):
+    """f32 operands, Cin 1 (the cin1 route's), Cin % 8 == 0 (sm90n's or
+    sm90's), Cin 5, a Cout that is no multiple of 8 and B fragments past
+    the register budget: the launcher raises before it looks at the
+    device."""
+    x, k, _ = _inputs((1, 3, 4, 16, cin), cout)
+    with pytest.raises(ValueError, match=match):
+        cuda_conv.launch(torch.tensor(x).to(dtype), torch.tensor(k).to(dtype), route="cinsmall")
+
+
+def test_cinsmall_launch_has_no_plain_version():
+    """`launch` is the kernels' launcher: a CPU tensor at a shape the
+    cinsmall kernel takes raises instead of taking `conv3d_reference`."""
+    x, k, _ = _inputs((1, 3, 4, 16, 2), 24)
+    with pytest.raises(ValueError, match="device"):
+        cuda_conv.launch(torch.tensor(x).to(torch.bfloat16), torch.tensor(k).to(torch.bfloat16), route="cinsmall")
 
 
 def test_sm90_weight_layout():
@@ -337,6 +400,18 @@ def test_chip_smoke_times_enc0a_on_the_cin1_route():
     assert (cin, cout) == (kshape[3], kshape[4]) and shape == mod.SLAB
     route = cuda_conv.conv3d_route(cin, cout, torch.bfloat16)
     assert route == "cin1" and mod.CONV_SOURCES[route].endswith("csrc/conv3d_cin1.cu")
+
+
+def test_chip_smoke_times_gradicon_enc0a_on_the_cinsmall_route():
+    """chip_smoke.py's cinsmall row is the shipped GradICON's finest-stage
+    enc0a (2 -> 24 at 1x48x96x96), and the source it names is the cinsmall
+    kernel's."""
+    mod = _chip_smoke()
+    (name, shape, cin, cout), = [c for c in mod.gradicon_convs() if c[0].endswith("enc0a")]
+    assert mod.CINSMALL_CONV == ("gradicon.stage2.enc0a", shape, cin, cout)
+    assert (shape, cin, cout) == ((1, 48, 96, 96), 2, 24)
+    route = cuda_conv.conv3d_route(cin, cout, torch.bfloat16)
+    assert route == "cinsmall" and mod.CONV_SOURCES[route].endswith("csrc/conv3d_cinsmall.cu")
 
 
 def test_every_conv_route_source_is_built():

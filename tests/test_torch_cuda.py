@@ -344,6 +344,75 @@ def test_cin1_launcher_refuses_other_shapes(card, cout, dtype):
         cuda_conv.launch(x, k, route="cin1")
 
 
+# (x shape without channels, Cin, Cout) for the cinsmall route (bf16, Cin
+# 2-4): the GradICON enc0a at its three stage grids (2 -> 24; the finest is
+# 1x48x96x96), rows whose W Cin is no multiple of 8 (the box built from
+# device memory), W cut into tiles (Cin 2 above 112 voxels, Cin 4 above
+# 48), a batch of 2, a single z plane, Cin 3 and 4 at their widest Cout
+CINSMALL_CASES = [
+    ((1, 12, 24, 24), 2, 24), ((1, 24, 48, 48), 2, 24), ((1, 48, 96, 96), 2, 24),
+    ((1, 5, 7, 37), 2, 24), ((2, 3, 6, 130), 2, 64), ((1, 1, 9, 16), 2, 8),
+    ((1, 3, 5, 16), 3, 40), ((1, 3, 5, 20), 3, 16), ((1, 3, 4, 200), 4, 32), ((2, 2, 3, 9), 4, 8),
+]
+
+
+def _cinsmall_inputs(card, shape, cin, cout, use_bias, seed=37):
+    rng = np.random.default_rng(seed + cin * 100 + cout)
+    x = torch.tensor(rng.normal(0, 1, shape + (cin,)).astype(np.float32), device=card).to(torch.bfloat16)
+    k = torch.tensor((rng.normal(0, 1, (3, 3, 3, cin, cout)) / np.sqrt(27 * cin)).astype(np.float32),
+                     device=card).to(torch.bfloat16)
+    b = torch.tensor(rng.normal(0, 0.5, (cout,)).astype(np.float32), device=card) if use_bias else None
+    return x, k, b
+
+
+@pytest.mark.parametrize("shape,cin,cout", CINSMALL_CASES)
+@pytest.mark.parametrize("use_bias,relu", [(True, True), (False, False)])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_cinsmall_conv_matches_plain(card, shape, cin, cout, use_bias, relu, out_dtype):
+    """The cinsmall kernel against the plain conv: 1e-4 with f32 output (the
+    same 27 Cin products in f32, in another order), 2e-2 with bf16 output
+    (one rounding of that); one counted cinsmall launch."""
+    x, k, b = _cinsmall_inputs(card, shape, cin, cout, use_bias)
+    assert cuda_conv.conv3d_route(cin, cout, torch.bfloat16) == "cinsmall"
+    before, before_route = cuda_conv.conv3d.launches, cuda_conv.conv3d.launches_cinsmall
+    got = cuda_conv.conv3d(x, k, b, relu=relu, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert cuda_conv.conv3d.launches == before + 1
+    assert cuda_conv.conv3d.launches_cinsmall == before_route + 1
+    want = cuda_conv.conv3d_reference(x, k, b, relu=relu, out_dtype=torch.float32)
+    tol = 1e-4 if out_dtype == torch.float32 else 2e-2
+    assert got.dtype == out_dtype
+    torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
+
+
+def test_cinsmall_uncounted_wmma_build_agrees(card):
+    """At the GradICON enc0a shape the wmma build, which ran it before the
+    cinsmall route, agrees within 2e-2 and moves no launch count."""
+    x, k, b = _cinsmall_inputs(card, (1, 12, 24, 24), 2, 24, True)
+    want = cuda_conv.conv3d(x, k, b, relu=True, out_dtype=torch.float32)
+    before = {r: getattr(cuda_conv.conv3d, f"launches_{r}") for r in cuda_conv.ROUTES}
+    total = cuda_conv.conv3d.launches
+    got = cuda_conv.launch(x, k, b, route="wmma", relu=True, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
+    assert {r: getattr(cuda_conv.conv3d, f"launches_{r}") for r in cuda_conv.ROUTES} == before
+    assert cuda_conv.conv3d.launches == total
+
+
+def test_cinsmall_conv_refuses_misaligned_input(card):
+    """A storage offset of one bf16 element breaks TMA's 16-byte alignment:
+    the wrapper raises, it does not fall back to another kernel."""
+    shape = (1, 3, 5, 16, 2)
+    base = torch.zeros(int(np.prod(shape)) + 1, device=card, dtype=torch.bfloat16)
+    x = base[1:].view(shape)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    k = torch.zeros((3, 3, 3, 2, 24), device=card, dtype=torch.bfloat16)
+    before = {r: getattr(cuda_conv.conv3d, f"launches_{r}") for r in cuda_conv.ROUTES}
+    with pytest.raises(ValueError, match="aligned"):
+        cuda_conv.conv3d(x, k)
+    assert {r: getattr(cuda_conv.conv3d, f"launches_{r}") for r in cuda_conv.ROUTES} == before
+
+
 def test_conv_kernel_refuses_bad_input(card):
     x = torch.zeros((1, 4, 4, 4, 3), device=card)
     with pytest.raises(TypeError):

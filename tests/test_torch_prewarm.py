@@ -19,6 +19,7 @@ import torch
 import bench as repo_bench
 from oai_analysis_2_tpu.engine import prewarm as JPrewarm
 from oai_analysis_2_tpu_torch import __main__ as TMain
+from oai_analysis_2_tpu_torch import native
 from oai_analysis_2_tpu_torch import bench as TBench
 from oai_analysis_2_tpu_torch.analysis_object import AnalysisObject
 from oai_analysis_2_tpu_torch.engine import prewarm as TPrewarm
@@ -104,8 +105,9 @@ def test_prewarm_report_on_the_cpu(tmp_path, monkeypatch):
     assert report["shape_zyx"] == [16, 32, 32] and report["registration_mode"] == "instance"
     assert set(report["stage_seconds"]) == {"preprocess", "segment", "register", "warp", "thickness"}
     assert report["first_knee_seconds"] > 0 and report["prewarm_seconds"] >= report["first_knee_seconds"]
-    n = len(cuda_build.EXTRA_FLAGS)
+    n = len(cuda_build.EXTRA_FLAGS) + 1  # the kernel libraries and the host-geometry library
     assert 0 <= report["compile_cache_entries_before"] <= report["compile_cache_entries_after"] <= n
+    assert native.library_path().exists()  # built up front
     json.dumps(report)
 
 
@@ -116,13 +118,20 @@ def test_prewarm_needs_a_card_by_default(monkeypatch):
 
 
 def test_built_library_count(tmp_path, monkeypatch):
-    """The count is of libraries built from the current sources and flags."""
+    """The count is of libraries built from the current sources and flags:
+    kernel libraries and the host-geometry library."""
     monkeypatch.setattr(cuda_build, "_BUILD", tmp_path)
+    monkeypatch.setattr(native, "_BUILD", tmp_path / "native")
     assert TPrewarm._built_libraries() == 0
     for name in ("conv3d_sm90", "point_triangle"):
         cuda_build.library_path(name).write_bytes(b"")
     (tmp_path / "conv3d_f32-0000000000000000.so").write_bytes(b"")  # a stale build
     assert TPrewarm._built_libraries() == 2
+    (tmp_path / "native").mkdir()
+    (tmp_path / "native" / "libnative-0000000000000000.so").write_bytes(b"")  # a stale build
+    assert TPrewarm._built_libraries() == 2
+    native.library_path().write_bytes(b"")
+    assert TPrewarm._built_libraries() == 3
 
 
 def test_bench_fixture_is_the_repo_bench_fixture():

@@ -1,6 +1,11 @@
 """Where the knee batch's smoothing time goes, on the card: the host's
 adjacency and neighbour table against the 150-iteration loop, for B knees'
-FC + TC meshes smoothed as one union and as one union per knee.
+FC + TC meshes smoothed as one union and as one union per knee, with the
+table built three ways: `native` (the host-geometry library's CSR and
+fill, what `smooth_mesh` runs), `numpy` (the plain `_adjacency` with its
+1-D edge key and `_neighbor_table`) and `numpy_2d` (the port's adjacency
+before the 1-D key: a 2-D `np.unique` of edge rows). The component
+filter's labels are timed too (`native` union-find against scipy).
 
     python3 tools/port_smooth_split.py [--knees 8] [--repeats 3]
 
@@ -26,9 +31,21 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from oai_analysis_2_tpu_torch import bench  # noqa: E402
-from oai_analysis_2_tpu_torch.mesh.components import filter_small_components  # noqa: E402
+from oai_analysis_2_tpu_torch import native  # noqa: E402
+from oai_analysis_2_tpu_torch.mesh.components import (  # noqa: E402
+    _union_find_labels,
+    filter_small_components,
+    scipy_component_labels,
+)
 from oai_analysis_2_tpu_torch.mesh.marching_cubes import marching_cubes  # noqa: E402
-from oai_analysis_2_tpu_torch.mesh.ops import _adjacency, _neighbor_table, _smooth_loop  # noqa: E402
+from oai_analysis_2_tpu_torch.mesh.ops import (  # noqa: E402
+    _adjacency,
+    _csr_adjacency,
+    _neighbor_table,
+    _smooth_loop,
+    _table_from_csr,
+    _table_width,
+)
 from oai_analysis_2_tpu_torch.mesh.processing import _as_xyz, _spacing  # noqa: E402
 from oai_analysis_2_tpu_torch.mesh.types import Mesh  # noqa: E402
 
@@ -39,13 +56,37 @@ def union(meshes) -> Mesh:
                 np.concatenate([m.faces + offsets[i] for i, m in enumerate(meshes)]).astype(np.int32))
 
 
-def split_times(mesh: Mesh, device="cuda", iterations: int = 150) -> dict:
-    """`smooth_mesh`'s steps on `device`, each timed to its end."""
-    t0 = time.perf_counter()
-    src, dst, _ = _adjacency(mesh)
-    t1 = time.perf_counter()
+def adjacency_2d(mesh: Mesh):
+    """The port's `_adjacency` before the 1-D edge key: a 2-D `np.unique`
+    of sorted edge rows (the same edge list)."""
+    f = mesh.faces.astype(np.int64)
+    edges = np.concatenate([f[:, [0, 1]], f[:, [1, 2]], f[:, [2, 0]]], axis=0)
+    uniq, counts = np.unique(np.sort(edges, axis=1), axis=0, return_counts=True)
+    boundary_edges = uniq[counts == 1]
+    is_boundary = np.zeros(mesh.n_points, bool)
+    is_boundary[np.unique(boundary_edges)] = True
+    src = np.concatenate([uniq[:, 0], uniq[:, 1]])
+    dst = np.concatenate([uniq[:, 1], uniq[:, 0]])
+    b_src = np.concatenate([boundary_edges[:, 0], boundary_edges[:, 1]])
+    b_dst = np.concatenate([boundary_edges[:, 1], boundary_edges[:, 0]])
+    interior = ~is_boundary[src]
+    return np.concatenate([src[interior], b_src]).astype(np.int32), np.concatenate([dst[interior], b_dst]).astype(
+        np.int32)
+
+
+def split_times(mesh: Mesh, path: str, device="cuda", iterations: int = 150) -> dict:
+    """`smooth_mesh`'s steps on `device` with the table built by `path`,
+    each timed to its end."""
     nv = mesh.n_points + 1
-    tbl = _neighbor_table(src, dst, nv, nv - 1)
+    t0 = time.perf_counter()
+    if path == "native":
+        deg, nbr = _csr_adjacency(mesh)
+        t1 = time.perf_counter()
+        tbl = _table_from_csr(deg, nbr, nv, _table_width(deg.max()), nv - 1)
+    else:
+        src, dst = _adjacency(mesh)[:2] if path == "numpy" else adjacency_2d(mesh)
+        t1 = time.perf_counter()
+        tbl = _neighbor_table(src, dst, nv, nv - 1)
     t2 = time.perf_counter()
     vp = np.zeros((nv, 3), np.float32)
     vp[: mesh.n_points] = mesh.vertices
@@ -67,14 +108,24 @@ def main() -> None:
     raws = [filter_small_components(marching_cubes(_as_xyz(m), 0.5, _spacing(m)), 3000)
             for m in (res.fc_probmap, res.tc_probmap)]
     tissues = raws * args.knees
-    runs = {"one_union": [], "union_per_knee": []}
+    native.build()
+    runs = {f"{grouping}:{path}": [] for path in ("native", "numpy", "numpy_2d")
+            for grouping in ("one_union", "union_per_knee")}
+    labels = {"native": [], "scipy": []}
+    whole = union(tissues)
     for _ in range(args.repeats):
-        runs["one_union"].append(split_times(union(tissues)))
-        per = [split_times(union(tissues[i : i + 2])) for i in range(0, len(tissues), 2)]
-        runs["union_per_knee"].append({k: sum(p[k] for p in per) for k in per[0]})
+        for path in ("native", "numpy", "numpy_2d"):
+            runs[f"one_union:{path}"].append(split_times(whole, path))
+            per = [split_times(union(tissues[i : i + 2]), path) for i in range(0, len(tissues), 2)]
+            runs[f"union_per_knee:{path}"].append({k: sum(p[k] for p in per) for k in per[0]})
+        for name, fn in (("native", _union_find_labels), ("scipy", scipy_component_labels)):
+            t0 = time.perf_counter()
+            fn(whole.n_points, whole.faces)
+            labels[name].append(time.perf_counter() - t0)
     out = {
         "knees": args.knees, "tissue_points": [m.n_points for m in raws], "tissue_faces": [m.n_cells for m in raws],
         "seconds_median": {name: {k: statistics.median(r[k] for r in rs) for k in rs[0]} for name, rs in runs.items()},
+        "component_labels_of_the_union_s_median": {k: statistics.median(v) for k, v in labels.items()},
         "card": bench.card_line(),
     }
     print(json.dumps(out))
