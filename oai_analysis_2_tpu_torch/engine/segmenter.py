@@ -15,6 +15,7 @@ batch_size, overlap_size, output_prob, output_itk, plus `compute_dtype`
 
 from __future__ import annotations
 
+import abc
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -58,7 +59,16 @@ def _pad(volumes: torch.Tensor, pads, mode: str) -> torch.Tensor:
     return out
 
 
-class Segmenter3DInPatchClassWise:
+class Segmenter(abc.ABC):
+    """Engine interface (port of `oai_analysis_2_tpu/engine/segmenter.py:36-41`,
+    reference segmenter.py:19-35)."""
+
+    @abc.abstractmethod
+    def segment(self, image, *args, **kwargs):
+        ...
+
+
+class Segmenter3DInPatchClassWise(Segmenter):
     """Per-class sigmoid segmentation over overlap-tiled patches."""
 
     # Per-step conv budget in input voxels (tile voxels x batch x knees),

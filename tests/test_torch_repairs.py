@@ -1,6 +1,6 @@
-"""Two faults of the port against the JAX package, repaired: an unreadable
-shipped GradICON file, and `register_pair` without JAX's `params`
-argument.
+"""Faults of the port against the JAX package, repaired: an unreadable
+shipped GradICON file, `register_pair` without JAX's `params` argument,
+and the segmenter without JAX's abstract `Segmenter` base.
 
 Both packages see the same corrupt file at a monkeypatched
 `default_gradicon_weights_path`, and the same seeded phantoms registered by
@@ -9,6 +9,7 @@ tolerances of tests/test_torch_registration.py.
 """
 
 import dataclasses
+import inspect
 from pathlib import Path
 
 import numpy as np
@@ -17,9 +18,11 @@ import torch
 
 from oai_analysis_2_tpu.core.image import image_from_array as jimage
 from oai_analysis_2_tpu.engine import registration as JR
+from oai_analysis_2_tpu.engine import segmenter as JSeg
 from oai_analysis_2_tpu.models import gradicon as JG
 from oai_analysis_2_tpu_torch.core.image import image_from_array as timage
 from oai_analysis_2_tpu_torch.engine import registration as TR
+from oai_analysis_2_tpu_torch.engine import segmenter as TSeg
 from oai_analysis_2_tpu_torch.models import gradicon as TG
 from oai_analysis_2_tpu_torch.models.synthetic import random_phantom
 
@@ -120,3 +123,18 @@ def test_load_gradicon_params_matches():
         for name in w:
             np.testing.assert_array_equal(g[name]["kernel"], np.asarray(w[name]["kernel"]))
 
+
+
+def test_segmenter_hierarchy_matches():
+    """`Segmenter` is an abstract base with the abstract `segment`, as in
+    the JAX package (`engine/segmenter.py:36-44`), and the patch segmenter
+    derives from it: the same class names up the hierarchy."""
+    assert issubclass(TSeg.Segmenter3DInPatchClassWise, TSeg.Segmenter)
+    assert inspect.isabstract(TSeg.Segmenter)
+    assert TSeg.Segmenter.__abstractmethods__ == JSeg.Segmenter.__abstractmethods__ == frozenset({"segment"})
+    with pytest.raises(TypeError):
+        TSeg.Segmenter()
+    names = [c.__name__ for c in TSeg.Segmenter3DInPatchClassWise.__mro__]
+    assert names == [c.__name__ for c in JSeg.Segmenter3DInPatchClassWise.__mro__]
+    assert not inspect.isabstract(TSeg.Segmenter3DInPatchClassWise)
+    assert TSeg.Segmenter3DInPatchClassWise(config={"device": "cpu"}).ready is False
