@@ -162,7 +162,32 @@ Phases, each fatal on failure (exit code 1, no result line):
    counts equal to the CLI route's on the same windowed knee, the
    thickness demo's inner mesh within phase 8's tolerances of
    `get_thickness_mesh` on the same map, and the cohort demo over two
-   copies of the knee: 2 done, no failed or retried record.
+   copies of the knee: 2 done, no failed or retried record;
+13. sharding: the multi-card path (`parallel/sharding.py`,
+   `BatchKneePipeline(mesh=...)`) in one process a rank: one rank a card
+   over NCCL where there are two or more cards, else two ranks on the one
+   card over gloo (NCCL refuses two ranks on one GPU; the ranks then show
+   what the collectives cost, not scaling), loading the kernels this
+   process built. Each rank: (a) 3 data-parallel steps of the production
+   UNet in bf16 on a global batch of 2 tiles of 32x128x128 a rank,
+   against rank 0's unsharded steps (`compare_train_runs`, the gradients
+   by the bf16 rule), the parameters bit-equal on every rank, one step
+   under torch.profiler (the collectives' share of it); (b) the
+   production tile z-sharded over 2 ranks: the forward against the
+   unsharded one (bf16 2e-2) and one spatial step's loss (1e-3) and
+   gradients (2e-2 of each leaf's largest) against the unsharded step's;
+   (c) 3 steps of the w24 GradICON in bf16 from the shipped weights, one
+   pair a rank, against rank 0's unsharded steps (the first loss 1e-3,
+   the first gradients 2e-2); (d) sharded inference of 5 tiles against
+   the unsharded forward (2e-2); (e) phase 10's two knees through
+   `BatchKneePipeline(mesh=...)` (network + 20 fine-tuning, bf16 warp):
+   every rank returns both knees, each knee's meshes within phase 8's
+   tolerances of phase 10 (b), each rank's launches equal to those of an
+   unsharded `run_batch` of its own knees; (f) `CohortRunner` in every
+   rank with the group up and no `host`, on 2 small knees a rank: each
+   done once, every rank took some. One `phase sharding` JSON line
+   carries the numbers per rank, beside the card, its power limit, the
+   device count and the backend.
 
 Before the last line it prints one JSON object `{"kernels": [...]}` (per
 kernel and conv route: launches on the reported run, max error against the
@@ -172,7 +197,8 @@ milliseconds, sm90 and sm90n rows the loads-only build's, the cin1 row the
 stores-only build's; the `:bn` rows count the launches of phase 8 (d), the
 `:b16` rows those of phase 10 (b), phase 2's sm90n row those of phase 11
 (d), its cinsmall row those of phase 11 (c), the `:train.` and `:dgrad`
-rows those of phase 11), then the card line.
+rows those of phase 11; `launches_by_path.sharded_knee_batch` sums the
+ranks' launches in phase 13 (e)), then the card line.
 The last line is `{"ok": true, "device": {...}}`. Without a CUDA card it
 exits with code 1 and prints no result. It imports nothing of JAX.
 """
@@ -1281,6 +1307,11 @@ BATCH_LAUNCHES = {"conv3d_sm90": 2 * 130, "conv3d_sm90n": 0, "conv3d_cin1": 2 * 
                   "conv3d_f32": 2 * 60, "point_triangle": 8}
 
 
+# phase 10's second knee: the bench fixture with both shells moved a few
+# voxels (and noise seed 1)
+SECOND_KNEE_SHELLS = dict(fc=(47.5, 52.5, (84, 205, 198)), tc=(31.5, 35.5, (76, 236, 186)))
+
+
 def check_meshes_close(got: dict, ref: dict, size_tol: float, mean_tol: float, what: str) -> None:
     """Each mesh's size and mean thickness in `got` (a `summarize` dict)
     within `size_tol` and `mean_tol` (relative) of `ref`'s."""
@@ -1314,9 +1345,8 @@ def knee_batch(torch, cuda_conv, cuda_kernels, pipe, knee) -> dict:
     from oai_analysis_2_tpu_torch.parallel import BatchKneePipeline, CohortRunner
 
     out = {}
-    # the second knee: both shells moved a few voxels, another noise seed
-    second = dict(FULL, fc=(47.5, 52.5, (84, 205, 198)), tc=(31.5, 35.5, (76, 236, 186)))
-    knees = [knee, image_from_array(knee_and_atlas(**second, seed=1)[0], spacing=(0.36, 0.36, 0.7), device="cuda")]
+    knees = [knee, image_from_array(knee_and_atlas(**dict(FULL, **SECOND_KNEE_SHELLS), seed=1)[0],
+                                    spacing=(0.36, 0.36, 0.7), device="cuda")]
 
     # (a) the pair, each knee alone and the swapped pair through the
     # segmenter at the training tiling, which all three passes share
@@ -1720,14 +1750,14 @@ def expected_train_counts(cuda_conv, convs, dtype, forwards, no_input_grad) -> d
     return out
 
 
-def compare_train_runs(card: dict, cpu: dict, lr: float, steps: int, what: str) -> dict:
+def compare_train_runs(card: dict, cpu: dict, lr: float, steps: int, what: str, grad_rel: float = 1e-3) -> dict:
     """Card against CPU from the same params, f32; every gap is measured,
     then any beyond its tolerance fails. Every step's outputs within 1e-3
     relative (GradICON's small reg term 1e-2): a max-pool or ReLU kink can
     move a later step by 1e-4 between two rounding orders (the JAX package
     against the port on the CPU: 1.3e-4 at step 2 of (b)'s GradICON). The
-    first step's gradients within 1e-3 of the leaf's largest plus 1e-5 of
-    the model's largest (the deepest leaves' gradients are sums that
+    first step's gradients within `grad_rel` (1e-3 for f32) of the leaf's
+    largest plus 1e-5 of the model's largest (the deepest leaves' gradients are sums that
     cancel, so their rounding follows the model's scale: on the card the
     gathers' backward adds with atomics in another order). The first
     step's params within 2e-2 lr on elements whose gradient is above 1e-2
@@ -1745,7 +1775,7 @@ def compare_train_runs(card: dict, cpu: dict, lr: float, steps: int, what: str) 
     top = max(float(np.abs(g).max()) for g in cpu["grads1"].values())
     for key, g in cpu["grads1"].items():
         gmax = float(np.abs(g).max())
-        tol = 1e-3 * gmax + 1e-5 * top
+        tol = grad_rel * gmax + 1e-5 * top
         over = float(np.abs(card["grads1"][key] - g).max()) / tol
         if over > gaps["grad_over_tol"]:
             gaps["grad_over_tol"], gaps["worst_grad_leaf"] = over, key
@@ -2327,6 +2357,401 @@ def example_nifti_demos(torch, cuda_conv, cuda_kernels) -> dict:
     return out
 
 
+# ---- phase 13: the multi-card path --------------------------------------------------
+
+SHARD_STEPS = 3  # (a) and (c): data-parallel steps
+SHARD_LR = {"unet": TRAIN_SMALL_LR, "gradicon": 3e-4}  # (a): phase 11 (b)'s step; (c): the w24 recipe's peak
+SHARD_TILES = 5  # (d)
+SHARD_COHORT_KNEES_A_RANK = 2  # (f)
+SHARD_DEADLINE_S = 600  # ranks still running after this are killed
+SHARD_BF16_TOL = 2e-2  # phase 11 (a)'s bf16 rule: values, and gradients against their leaf's largest
+
+
+def sharding_layout(torch):
+    """(ranks, backend): one rank a card over NCCL where there are two or
+    more cards; on one card two ranks over gloo, as NCCL refuses two ranks
+    on one GPU. Two ranks on one card show what the collectives cost, not
+    scaling."""
+    n = torch.cuda.device_count()
+    return (n, "nccl") if n >= 2 else (2, "gloo")
+
+
+def leaves_np(model) -> dict:
+    return {k: p.detach().float().cpu().numpy().copy() for k, p in model.named_parameters()}
+
+
+def grads_np(model) -> dict:
+    return {k: p.grad.detach().float().cpu().numpy().copy() for k, p in model.named_parameters()}
+
+
+def train_run(torch, model, step, batches) -> dict:
+    """`step` on each batch: the record `compare_train_runs` reads, and
+    each step's seconds (the card synchronized around it)."""
+    out = {"losses": [], "step_s": []}
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(*batch)
+        torch.cuda.synchronize()
+        out["step_s"].append(time.perf_counter() - t0)
+        out["losses"].append([float(loss)])
+        if i == 0:
+            out["grads1"], out["params1"] = grads_np(model), leaves_np(model)
+    out["params"] = leaves_np(model)
+    return out
+
+
+def check_grads_bf16(got: dict, want: dict, what: str) -> float:
+    """Every leaf's gradient within SHARD_BF16_TOL of the leaf's largest;
+    returns the worst gap over that scale."""
+    worst = 0.0
+    for key, g in want.items():
+        gap = float(np.abs(got[key] - g).max()) / max(float(np.abs(g).max()), 1e-30)
+        worst = max(worst, gap)
+        if not gap <= SHARD_BF16_TOL:
+            raise AssertionError(f"{what}: the gradient of {key} is off by {gap} of its largest element")
+    return worst
+
+
+def same_on_every_rank(torch, dist, model) -> bool:
+    """Every rank's parameters bit-equal to rank 0's."""
+    flat = torch.cat([p.detach().reshape(-1).float() for p in model.parameters()])
+    ref = flat.clone()
+    dist.broadcast(ref, src=0)
+    flags = [None] * dist.get_world_size()
+    dist.all_gather_object(flags, bool(torch.equal(flat, ref)))
+    return all(flags)
+
+
+COLLECTIVE_KEYS = ("allreduce", "all_reduce", "broadcast", "allgather", "all_gather", "record_param_comms",
+                   "gloo", "nccl")
+
+
+def profile_collectives(torch, dist, fn) -> dict:
+    """One call of `fn` under torch.profiler, every rank at once (a barrier
+    first): its wall time, the host time inside the collectives (the union
+    of the profiler's host spans named after them), the device's busy time
+    and the device time of NCCL's kernels and of the copies (gloo moves a
+    CUDA tensor through the host)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    dist.barrier()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    host = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                  if e.device_type == DeviceType.CPU and any(k in e.name.lower() for k in COLLECTIVE_KEYS))
+    host_us, cur = 0.0, None
+    for start, end in host:
+        if cur is None or start > cur[1]:
+            host_us += 0.0 if cur is None else cur[1] - cur[0]
+            cur = [start, end]
+        else:
+            cur[1] = max(cur[1], end)
+    host_us += 0.0 if cur is None else cur[1] - cur[0]
+    spans, busy_us, by_name = device_spans(prof)
+    return {"wall_s": wall, "collective_host_s": host_us / 1e6, "collective_share": host_us / 1e6 / wall,
+            "collective_spans": len(host), "device_busy_s": busy_us / 1e6,
+            "nccl_device_ms": sum(us for n, us in by_name.items() if "nccl" in n.lower()) / 1e3,
+            "copy_device_ms": sum(us for n, us in by_name.items() if "memcpy" in n.lower()) / 1e3}
+
+
+def sharding_rank(rank, world, backend, out_dir):
+    """One rank of phase 13: joins the group, runs (a)-(f) and writes its
+    report to `out_dir/rank<r>.json`; a failed gate raises."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    # the kernels the parent built: loaded from build/kernels/, no nvcc
+    from oai_analysis_2_tpu_torch.ops import cuda_build
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(backend, init_method=f"file://{out_dir}/rendezvous", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        cuda_build.build_all()
+        report = sharding_rank_body(torch, dist, rank, world, out_dir)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(report, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def sharding_rank_body(torch, dist, rank, world, out_dir) -> dict:
+    from pathlib import Path
+
+    from oai_analysis_2_tpu_torch.bench import FULL, knee_and_atlas
+    from oai_analysis_2_tpu_torch.core.image import image_from_array
+    from oai_analysis_2_tpu_torch.engine.training import dice_bce_loss, make_train_step
+    from oai_analysis_2_tpu_torch.models.gradicon import (
+        GradICON,
+        GradICONConfig,
+        load_gradicon_params,
+        make_gradicon_train_step,
+    )
+    from oai_analysis_2_tpu_torch.models.synthetic import make_phantom_pool
+    from oai_analysis_2_tpu_torch.models.unet3d import NETWORK_SPECS, UNet3D
+    from oai_analysis_2_tpu_torch.ops import cuda_conv, cuda_kernels
+    from oai_analysis_2_tpu_torch.parallel import BatchKneePipeline, CohortRunner, make_device_mesh
+    from oai_analysis_2_tpu_torch.parallel.sharding import (
+        ZHalo,
+        gather_slots,
+        make_sharded_gradicon_train_step,
+        make_sharded_inference,
+        make_sharded_train_step,
+        shard_batch,
+    )
+    from oai_analysis_2_tpu_torch.utils import optim
+
+    mesh = make_device_mesh()  # world x 1
+    dev = torch.device("cuda", torch.cuda.current_device())
+    report = {"rank": rank, "card": dev.index, "card_name": torch.cuda.get_device_name(dev)}
+    spec = NETWORK_SPECS["UNet"].replace(bias=True)
+
+    def unet():
+        return UNet3D(spec, torch.bfloat16, device=dev).init(torch.Generator().manual_seed(0))
+
+    # (a) the production UNet, bf16: SHARD_STEPS data-parallel steps on a
+    # global batch of 2 tiles a rank, against rank 0's unsharded steps
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    batch = (2 * world,) + TRAIN_TILE[1:]
+    batches = [(rng.uniform(0, 1, batch + (1,)).astype(np.float32),
+                (rng.uniform(0, 1, batch + (2,)) > 0.6).astype(np.float32)) for _ in range(SHARD_STEPS)]
+    model = unet()
+    lr = SHARD_LR["unet"]
+    sharded = train_run(torch, model, make_sharded_train_step(model, optim.adam(list(model.parameters()), lr), mesh),
+                        batches)
+    a = {"global_batch": list(batch), "sharded_step_s": sharded["step_s"], "losses": sharded["losses"],
+         "bit_equal_across_ranks": same_on_every_rank(torch, dist, model)}
+    if not a["bit_equal_across_ranks"]:
+        raise AssertionError("(a) the ranks' parameters differ after the sharded steps")
+    if rank == 0:
+        ref = unet()
+        ref_step = make_train_step(ref, optim.adam(list(ref.parameters()), lr))
+        alone = train_run(torch, ref, ref_step, [(torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev))
+                                                 for x, y in batches])
+        a["unsharded_step_s"] = alone["step_s"]
+        a["unsharded_losses"] = alone["losses"]
+        # bf16: the gradients take phase 11 (a)'s bf16 rule
+        a["gaps"] = compare_train_runs(sharded, alone, lr, SHARD_STEPS, "(a) sharded against unsharded UNet steps",
+                                       grad_rel=SHARD_BF16_TOL)
+        del ref, ref_step, alone
+    step = make_sharded_train_step(model, optim.adam(list(model.parameters()), lr), mesh)
+    a["profiled_step"] = profile_collectives(torch, dist, lambda: step(*batches[0]))
+    a["seconds"] = time.perf_counter() - t0
+    report["a"] = a
+
+    # (b) the production tile z-sharded: the forward against the unsharded
+    # forward, one spatial step's gradients against the unsharded step's
+    t0 = time.perf_counter()
+    smesh = make_device_mesh(n_data=world // 2, n_space=2)
+    tiles = (2 * (world // 2),) + TRAIN_TILE[1:]
+    x = rng.uniform(0, 1, tiles + (1,)).astype(np.float32)
+    y = (rng.uniform(0, 1, tiles + (2,)) > 0.6).astype(np.float32)
+    model = unet()
+    with torch.no_grad():
+        block = model(shard_batch(smesh, x, spatial_axis=1), halo=ZHalo(smesh))
+        got = torch.cat(list(gather_slots(block, smesh.get_group("space"))), dim=1)
+        want = model(shard_batch(smesh, x))
+    b = {"tiles": list(tiles), "z_block": tiles[1] // 2,
+         "forward_max_abs_err": check_close("(b) z-sharded forward", got, want, SHARD_BF16_TOL, SHARD_BF16_TOL)}
+    del block, got, want
+    spatial = make_sharded_train_step(model, optim.adam(list(model.parameters()), lr), smesh, spatial_shard=True)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    loss = float(spatial(x, y))
+    torch.cuda.synchronize()
+    b["spatial_step_s"] = time.perf_counter() - t1
+    b["bit_equal_across_ranks"] = same_on_every_rank(torch, dist, model)
+    grads = grads_np(model)
+    ref = unet()
+    for p in ref.parameters():
+        p.requires_grad_(True)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ref_loss = dice_bce_loss(ref(torch.as_tensor(x, device=dev)), torch.as_tensor(y, device=dev))
+    ref_loss.backward()
+    torch.cuda.synchronize()
+    b["unsharded_step_s"] = time.perf_counter() - t1
+    b["loss"], b["unsharded_loss"] = loss, float(ref_loss.detach())
+    if not abs(loss - b["unsharded_loss"]) <= 1e-3 * abs(b["unsharded_loss"]) or not b["bit_equal_across_ranks"]:
+        raise AssertionError(f"(b) spatial step: loss {loss} against {b['unsharded_loss']} unsharded, parameters "
+                             f"equal across ranks {b['bit_equal_across_ranks']}")
+    b["worst_grad_gap"] = check_grads_bf16(grads, grads_np(ref), "(b) spatial step against the unsharded step")
+    b["seconds"] = time.perf_counter() - t0
+    report["b"] = b
+    del model, ref, spatial, ref_loss
+
+    # (c) the w24 GradICON, bf16, shipped weights: SHARD_STEPS data-parallel
+    # steps, one pair a rank, against rank 0's unsharded steps
+    t0 = time.perf_counter()
+    cfg = GradICONConfig(grid_shape=REG_GRID, stage_width=REG_WIDTH)
+    shipped = load_gradicon_params()
+
+    def gradicon():
+        g = GradICON(cfg, compute_dtype=torch.bfloat16, device=dev)
+        g.load_params(shipped)
+        return g
+
+    pool = make_phantom_pool(2 * world, REG_GRID, seed=0)
+    pairs = [(pool[:world], pool[world:])] * SHARD_STEPS
+    glr = SHARD_LR["gradicon"]
+    model = gradicon()
+    gsharded = train_run(torch, model, make_sharded_gradicon_train_step(
+        model, optim.adam(list(model.parameters()), glr), mesh), pairs)
+    c = {"pairs": world, "sharded_step_s": gsharded["step_s"], "losses": gsharded["losses"],
+         "bit_equal_across_ranks": same_on_every_rank(torch, dist, model)}
+    if not c["bit_equal_across_ranks"] or not np.isfinite(gsharded["losses"]).all():
+        raise AssertionError(f"(c) GradICON steps: losses {gsharded['losses']}, parameters equal across ranks "
+                             f"{c['bit_equal_across_ranks']}")
+    if rank == 0:
+        ref = gradicon()
+        ref_step = make_gradicon_train_step(ref, optim.adam(list(ref.parameters()), glr))
+        alone = train_run(torch, ref, ref_step, [tuple(torch.as_tensor(v, device=dev) for v in p) for p in pairs])
+        c["unsharded_step_s"] = alone["step_s"]
+        c["unsharded_losses"] = alone["losses"]
+        first = abs(gsharded["losses"][0][0] - alone["losses"][0][0]) / abs(alone["losses"][0][0])
+        c["first_loss_rel_gap"] = first
+        if not first <= 1e-3:
+            raise AssertionError(f"(c) first GradICON loss {gsharded['losses'][0]} against {alone['losses'][0]}")
+        c["worst_grad_gap"] = check_grads_bf16(gsharded["grads1"], alone["grads1"], "(c) GradICON first gradients")
+        del ref, ref_step, alone
+    c["seconds"] = time.perf_counter() - t0
+    report["c"] = c
+    del model, gsharded
+
+    # (d) sharded inference: SHARD_TILES production tiles over the ranks
+    t0 = time.perf_counter()
+    model = unet()
+    tiles = rng.uniform(0, 1, (SHARD_TILES,) + TRAIN_TILE[1:] + (1,)).astype(np.float32)
+    infer = make_sharded_inference(model, mesh)
+    probs = infer(tiles)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    probs = infer(tiles)
+    torch.cuda.synchronize()
+    d = {"tiles": SHARD_TILES, "sharded_s": time.perf_counter() - t1}
+    with torch.no_grad():
+        t1 = time.perf_counter()
+        want = torch.sigmoid(model(torch.as_tensor(tiles, device=dev)))
+        torch.cuda.synchronize()
+        d["unsharded_s"] = time.perf_counter() - t1
+    if tuple(probs.shape) != tuple(want.shape):
+        raise AssertionError(f"(d) sharded inference shape {tuple(probs.shape)}, want {tuple(want.shape)}")
+    d["max_abs_err"] = check_close("(d) sharded inference", probs, want, SHARD_BF16_TOL, 0.0)
+    d["seconds"] = time.perf_counter() - t0
+    report["d"] = d
+    del model, probs, want, infer
+    torch.cuda.empty_cache()
+
+    # (e) the knee batch: phase 10's two full-size knees split over the
+    # data axis; each rank's launches against an unsharded run_batch of its
+    # own knees, counted here
+    t0 = time.perf_counter()
+    pipe, knee = build_pipeline("cuda", FULL, batch_size=8)
+    knees = [knee, image_from_array(knee_and_atlas(**dict(FULL, **SECOND_KNEE_SHELLS), seed=1)[0],
+                                    spacing=(0.36, 0.36, 0.7), device="cuda")]
+    kw = dict(registration_mode="network", finetune_steps=20, warp_dtype="bfloat16")
+    bpipe = BatchKneePipeline(pipe.segmenter, pipe.atlas, mesh=mesh, **kw)
+    bpipe.run_batch(knees)
+    torch.cuda.synchronize()
+    dist.barrier()
+    reset_launches(cuda_conv, cuda_kernels)
+    t1 = time.perf_counter()
+    results = bpipe.run_batch(knees)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = read_launches(cuda_conv, cuda_kernels)
+    own = bpipe._own_knees(len(knees))
+    alone_pipe = BatchKneePipeline(pipe.segmenter, pipe.atlas, device=dev, **kw)
+    dist.barrier()
+    reset_launches(cuda_conv, cuda_kernels)
+    t1 = time.perf_counter()
+    alone_pipe.run_batch([knees[i] for i in own])
+    torch.cuda.synchronize()
+    alone_s = time.perf_counter() - t1
+    alone_launches = read_launches(cuda_conv, cuda_kernels)
+    if launches != alone_launches:
+        raise AssertionError(f"(e) rank {rank}'s sharded run_batch launched {launches}; its knees {own} alone "
+                             f"launched {alone_launches}")
+    if len(results) != len(knees):
+        raise AssertionError(f"(e) rank {rank} returned {len(results)} knees of {len(knees)}")
+    report["e"] = {"own_knees": own, "batch_seconds": wall, "seconds_a_knee": wall / len(knees),
+                   "own_knees_alone_s": alone_s, "launches": launches,
+                   "stage_seconds": {k: v["seconds"] for k, v in results[0].timings.items()},
+                   "knees": [summarize(r) for r in results], "seconds": time.perf_counter() - t0}
+    del pipe, knee, knees, bpipe, alone_pipe, results
+    torch.cuda.empty_cache()
+
+    # (f) the cohort runner in every rank with the group up and no `host`
+    t0 = time.perf_counter()
+    small_pipe, _ = build_pipeline("cuda", SMALL, batch_size=4)
+    n_small = SHARD_COHORT_KNEES_A_RANK * world
+    small = [image_from_array(knee_and_atlas(**SMALL, seed=s)[0], spacing=(0.36, 0.36, 0.7), device="cuda")
+             for s in range(n_small)]
+    done = []
+
+    def run_knee(i):
+        r = small_pipe.run(small[i])
+        done.append(i)
+        return {"rank": rank, "fc_inner_points": int(r.fc_inner.n_points)}
+
+    dist.barrier()
+    runner = CohortRunner(run_knee, Path(out_dir) / "cohort" / "manifest.json", verbose=False, poll_seconds=0.2)
+    summary = runner.run(list(range(n_small)), keys=[f"knee{i}" for i in range(n_small)])
+    if summary.get("done") != n_small or (runner.host, runner.n_hosts) != (rank, world):
+        raise AssertionError(f"(f) cohort summary {summary}, host {runner.host} of {runner.n_hosts}")
+    report["f"] = {"done": done, "summary": summary, "seconds": time.perf_counter() - t0}
+    return report
+
+
+def sharding(torch, card, knee_batch_ref) -> dict:
+    """Phase 13: the multi-card path (`parallel/sharding.py`,
+    `BatchKneePipeline(mesh=...)`) in one process a rank; the gates that
+    need every rank's report."""
+    import shutil
+    from pathlib import Path
+
+    import torch.multiprocessing as mp
+
+    world, backend = sharding_layout(torch)
+    out_dir = Path(__file__).resolve().parent / "build" / "sharding_smoke"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    log(f"phase sharding: {world} ranks over {backend} on {torch.cuda.device_count()} card(s) ({card})")
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(sharding_rank, args=(world, backend, str(out_dir)), nprocs=world, join=False,
+                             start_method="spawn")
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.perf_counter() - t0 > SHARD_DEADLINE_S:
+                raise AssertionError(f"phase sharding: ranks still running after {SHARD_DEADLINE_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(world)]
+    for r, rep in enumerate(ranks):
+        for i, (got, ref) in enumerate(zip(rep["e"]["knees"], knee_batch_ref)):
+            check_meshes_close(got, ref, 0.005, 0.01, f"(e) rank {r} knee{i} against phase 10 (b):")
+    done = [i for rep in ranks for i in rep["f"]["done"]]
+    if sorted(done) != list(range(SHARD_COHORT_KNEES_A_RANK * world)) or not all(rep["f"]["done"] for rep in ranks):
+        raise AssertionError(f"(f) cohort: knees done by rank {[rep['f']['done'] for rep in ranks]}")
+    return {"ranks": world, "backend": backend, "device_count": torch.cuda.device_count(), "card": card,
+            "phase_s": time.perf_counter() - t0, "per_rank": ranks}
+
+
 def main() -> int:
     import torch
 
@@ -2578,6 +3003,22 @@ def main() -> int:
     for k in kernels[:n_before]:  # the rows of phases 2-10 (phase 11's rows count their own paths)
         k["launches_by_path"]["full_demo"] = examples["full_demo"]["full"]["launches"][k["name"].split(":")[0]]
     log(f"phase examples (card {card}): {json.dumps(examples)}")
+
+    # ---- 13. the multi-card path ------------------------------------------------------
+    shard = sharding(torch, card, batch["run_batch"]["knees"])
+    for k in kernels[:n_before]:
+        fam = k["name"].split(":")[0]
+        k["launches_by_path"]["sharded_knee_batch"] = sum(r["e"]["launches"][fam] for r in shard["per_rank"])
+    for r in shard["per_rank"]:
+        prof = r["a"]["profiled_step"]
+        log(f"phase sharding: rank {r['rank']} (card {r['card']}): UNet step {r['a']['sharded_step_s'][-1]:.3f} s "
+            f"sharded, {r['a'].get('unsharded_step_s', [float('nan')])[-1]:.3f} s unsharded at the same global "
+            f"batch (rank 0); collectives {prof['collective_host_s']:.3f} s of a {prof['wall_s']:.3f} s step "
+            f"({prof['collective_share']:.3f}); z-sharded step {r['b']['spatial_step_s']:.3f} s; GradICON step "
+            f"{r['c']['sharded_step_s'][-1]:.3f} s; knee batch {r['e']['seconds_a_knee']:.3f} s a knee "
+            f"(own knees {r['e']['own_knees']} alone {r['e']['own_knees_alone_s']:.3f} s)")
+    log(f"phase sharding ({shard['phase_s']:.1f} s, card {card}, {shard['ranks']} ranks over {shard['backend']}, "
+        f"device_count {shard['device_count']}): {json.dumps(shard)}")
 
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -286,29 +286,51 @@ class UNet3D(nn.Module):
         y, stats[name] = blk.bn.train_forward(y)
         return torch.relu(y)
 
-    def _conv(self, x: torch.Tensor, name: str, stats: Optional[dict]) -> torch.Tensor:
+    def _conv(self, x: torch.Tensor, name: str, stats: Optional[dict], halo=None) -> torch.Tensor:
+        if halo is not None:
+            x, lo, hi = halo(x)
         blk = getattr(self, name)
         kernel = blk.kernel.to(x.dtype).contiguous()
         # a graph only where grad is enabled and something needs a gradient
         needs = x.requires_grad or kernel.requires_grad or (blk.bias is not None and blk.bias.requires_grad)
         conv = conv3d_train if torch.is_grad_enabled() and needs else conv3d
         if blk.bn is None:
-            return conv(x, kernel, blk.bias, relu=True, out_dtype=self.compute_dtype)
-        y = conv(x, kernel, blk.bias, relu=False, out_dtype=torch.float32)
-        return self._norm_relu(y, blk, name, stats).to(self.compute_dtype)
+            y = conv(x, kernel, blk.bias, relu=True, out_dtype=self.compute_dtype)
+        else:
+            y = conv(x, kernel, blk.bias, relu=False, out_dtype=torch.float32)
+            y = self._norm_relu(y, blk, name, stats).to(self.compute_dtype)
+        if halo is not None and (lo or hi):
+            # the halo planes' outputs belong to the neighbours; the kernels
+            # want a 16-byte aligned start, so the crop is copied
+            y = y[:, lo : y.shape[1] - hi].contiguous()
+        return y
 
-    def forward(self, x: torch.Tensor, train: bool = False):
+    def forward(self, x: torch.Tensor, train: bool = False, halo=None):
         """x (N, D, H, W, Cin) -> f32 logits (N, D, H, W, n_classes); with
         `train` on a BN spec, (logits, {block: {"mean", "var"}}) with the
-        batch's statistics (JAX `apply(train=True)`)."""
+        batch's statistics (JAX `apply(train=True)`).
+
+        `halo` (`parallel.sharding.ZHalo`): x is one z-block of a volume
+        split over ranks; each 3x3x3 conv runs on the block with the
+        neighbours' adjacent z-planes around it and keeps the block's own
+        planes, so the logits are the block's share of the whole volume's.
+        Max-pool and the upconv stay local, so D must divide by 2 ** (number
+        of pools)."""
         spec = self.spec
         cd = self.compute_dtype
         stats = {} if train and spec.batchnorm else None
+        if halo is not None:
+            pools = 2 ** (len(spec.enc) - 1)
+            if x.shape[1] % pools:
+                raise ValueError(f"a z-block of depth {x.shape[1]} does not divide by {pools}, the UNet's pooling")
+            if stats is not None:
+                raise ValueError("train-mode batch norm takes its statistics from the whole batch; "
+                                 "a z-sharded forward has only its block")
         x = x.to(cd).contiguous()
         skips = []
         for li in range(len(spec.enc)):
-            x = self._conv(x, f"enc{li}a", stats)
-            x = self._conv(x, f"enc{li}b", stats)
+            x = self._conv(x, f"enc{li}a", stats, halo)
+            x = self._conv(x, f"enc{li}b", stats, halo)
             if li < len(spec.enc) - 1:
                 skips.append(x)
                 x = maxpool2x(x).contiguous()
@@ -317,8 +339,8 @@ class UNet3D(nn.Module):
             up = self._norm_relu(upconv2x(x, getattr(self, name)), getattr(self, name), name, stats)
             skip = skips[len(skips) - 1 - li]
             x = torch.cat([up.to(cd), skip.to(cd)], dim=-1)
-            x = self._conv(x, f"dec{li}a", stats)
-            x = self._conv(x, f"dec{li}b", stats)
+            x = self._conv(x, f"dec{li}a", stats, halo)
+            x = self._conv(x, f"dec{li}b", stats, halo)
         if spec.classwise_heads:
             logits = torch.cat(
                 [_pointwise(x, getattr(self, f"head{c}")) for c in range(spec.n_classes)], dim=-1

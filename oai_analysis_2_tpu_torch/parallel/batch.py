@@ -8,12 +8,21 @@ one knee after another (the JAX package's `lax.map`). The thickness meshes
 of the whole batch come from one `get_thickness_meshes` call, one knee's
 FC + TC per smoothing group.
 
-The JAX version shards the batch over a device mesh; here `device` (None:
-the card) takes the place of `mesh` and the batch runs on one device. All
-device work is queued on that device's current stream, where JAX's
-software pipeline of `run_batches` (batch k+1's device stages dispatched
-before batch k's thickness) has nothing to overlap: it runs the batches
-one after another.
+With `mesh=None` the batch runs on `device` (None: the card). With a
+`parallel.sharding` mesh every rank makes the same call with the same
+knees: the batch is padded to a multiple of the mesh's data axis (as the
+JAX package pads it), each rank runs the device stages and the thickness
+meshes of its own block of knees on its own card, and the warped maps,
+displacement fields and meshes are gathered, so that every rank returns
+the whole batch. The rank split is the JAX package's placement of knee i's
+smoothing, distance and marching cubes on chip i; each rank also runs its
+own knees' host work (the thickness stage's k-means), which the JAX
+package runs in series in one process.
+
+All device work of a rank is queued on its card's current stream, where
+JAX's software pipeline of `run_batches` (batch k+1's device stages
+dispatched before batch k's thickness) has nothing to overlap: it runs the
+batches one after another.
 """
 
 from __future__ import annotations
@@ -21,6 +30,7 @@ from __future__ import annotations
 from typing import List, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from oai_analysis_2_tpu_torch.core.device import resolve_device
 from oai_analysis_2_tpu_torch.core.image import Image, physical_grid
@@ -37,17 +47,21 @@ from oai_analysis_2_tpu_torch.ops.resample import (
     _upsample_field_separable,
     sample_displacement,
 )
+from oai_analysis_2_tpu_torch.parallel.sharding import gather_slots, mesh_device
 from oai_analysis_2_tpu_torch.utils.profiling import StageTimer
 
 
 class BatchKneePipeline:
-    """segment + register + warp for B knees on one device, plus the batch's
-    thickness meshes."""
+    """segment + register + warp for B knees, plus the batch's thickness
+    meshes, on one device or split over the data axis of a mesh
+    (`parallel.sharding.make_device_mesh`; the rank's card is its device,
+    and `device` is not read)."""
 
     def __init__(
         self,
         segmenter: Segmenter3DInPatchClassWise,
         atlas_image: Image,
+        mesh=None,
         registration_config: GradICONConfig = None,
         registration_mode: str = "auto",
         instance_scales: Tuple[int, ...] = (4, 2, 1),
@@ -63,12 +77,13 @@ class BatchKneePipeline:
         device=None,
     ):
         """max_batch_per_device: the most knees one pass of the device stages
-        holds (the segmenter's padded volumes, tile batch and canvases grow
-        with it); a larger batch runs in chunks of that many, with the same
-        results."""
+        holds on one device (the segmenter's padded volumes, tile batch and
+        canvases grow with it); a larger batch runs in chunks of that many
+        times `n_devices`, with the same results."""
         if warp_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"warp_dtype must be 'float32' or 'bfloat16', got {warp_dtype!r}")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device) if mesh is None else mesh_device(mesh)
         self.segmenter = segmenter
         self.atlas = atlas_image.to(self.device)
         self.instance_scales = tuple(instance_scales)
@@ -93,7 +108,23 @@ class BatchKneePipeline:
 
     @property
     def n_devices(self) -> int:
-        return 1
+        """The ranks a batch is split over: the mesh's data axis."""
+        return 1 if self.mesh is None else self.mesh.size(0)
+
+    def _own_knees(self, n: int) -> List[int]:
+        """The indices of the knees of an n-knee batch that this rank runs:
+        in each chunk of m knees, padded to k * n_devices, the data-axis
+        rank d takes the real knees of the d-th block of k."""
+        if self.mesh is None:
+            return list(range(n))
+        d = self.mesh.get_coordinate()[0]
+        chunk = self.max_batch_per_device * self.n_devices
+        own = []
+        for start in range(0, n, chunk):
+            m = min(chunk, n - start)
+            k = -(-m // self.n_devices)
+            own += range(start + d * k, start + min((d + 1) * k, m))
+        return own
 
     @staticmethod
     def _meta_key(image: Image) -> tuple:
@@ -176,15 +207,20 @@ class BatchKneePipeline:
         warped, disp = self._dispatch_device_batch(images)
         return warped.cpu().numpy(), disp.cpu().numpy()
 
+    def _zeros(self, n: int):
+        """(warped, disp) of n knees, all zero: correctly ranked empties, and
+        the rows of padding knees."""
+        if not self.segmenter.ready:
+            self.segmenter.pred_setup()
+        c = self.segmenter.model.spec.n_classes
+        return (torch.zeros((n,) + self.atlas.shape + (c,), device=self.device),
+                torch.zeros((n,) + tuple(self.reg_config.grid_shape) + (3,), device=self.device))
+
     def _dispatch_device_batch(self, images: Sequence[Image]):
-        """The device stages of a batch: (warped, disp) left on the device."""
+        """The device stages of a batch: (warped, disp) left on the device;
+        on a mesh, the whole batch's on every rank."""
         if not images:
-            # correctly ranked empties, as the output contract documents
-            if not self.segmenter.ready:
-                self.segmenter.pred_setup()
-            c = self.segmenter.model.spec.n_classes
-            return (torch.zeros((0,) + self.atlas.shape + (c,), device=self.device),
-                    torch.zeros((0,) + tuple(self.reg_config.grid_shape) + (3,), device=self.device))
+            return self._zeros(0)
         chunk = self.max_batch_per_device * self.n_devices
         if len(images) > chunk:
             outs = [self._dispatch_device_batch(images[i : i + chunk]) for i in range(0, len(images), chunk)]
@@ -192,12 +228,23 @@ class BatchKneePipeline:
         if len({self._meta_key(im) for im in images}) != 1:
             raise ValueError("all knees in a batch must share volume shape and physical metadata; got "
                              f"{len({self._meta_key(im) for im in images})} distinct geometries")
-        template = images[0].to(self.device)
-        # knees already on the device are stacked there, not through the host
-        knees = [template.with_data(im.data.to(device=self.device, dtype=torch.float32)) for im in images]
-        pre = torch.stack([(percentile_window(k) if self.normalize else k).data for k in knees])
-        maps = self._seg_fn(template.shape, len(images))(pre)
-        return self._register_warp(template, pre, maps)
+        own = [images[i] for i in self._own_knees(len(images))]
+        if own:
+            template = own[0].to(self.device)
+            # knees already on the device are stacked there, not through the host
+            knees = [template.with_data(im.data.to(device=self.device, dtype=torch.float32)) for im in own]
+            pre = torch.stack([(percentile_window(k) if self.normalize else k).data for k in knees])
+            maps = self._seg_fn(template.shape, len(own))(pre)
+            warped, disp = self._register_warp(template, pre, maps)
+        if self.mesh is None:
+            return warped, disp
+        # every rank's block padded to k knees, gathered over the data axis
+        k = -(-len(images) // self.n_devices)
+        pad_w, pad_d = self._zeros(k - len(own))
+        if own:
+            pad_w, pad_d = torch.cat([warped, pad_w]), torch.cat([disp, pad_d])
+        group = self.mesh.get_group("data")
+        return tuple(gather_slots(t, group).flatten(0, 1)[: len(images)] for t in (pad_w, pad_d))
 
     def run_batch(self, images: Sequence[Image], compute_thickness: bool = True) -> List[KneeResult]:
         """Device stages and the batch's thickness meshes."""
@@ -223,9 +270,16 @@ class BatchKneePipeline:
             probmaps.append((fc, fc.with_data(warped[i, ..., 1])))
         if compute_thickness:
             sub: dict = {}
+            own = self._own_knees(len(images))
             with timer.stage("thickness_batch"):
-                pairs = get_thickness_meshes([m for fc, tc in probmaps for m in (fc, tc)],
-                                             ["FC", "TC"] * len(images), group_size=2, timings_out=sub)
+                pairs = get_thickness_meshes([m for i in own for m in probmaps[i]], ["FC", "TC"] * len(own),
+                                             group_size=2, timings_out=sub)
+                if self.mesh is not None:  # every rank's knees' meshes, host objects, to every rank
+                    got = [None] * self.n_devices
+                    dist.all_gather_object(got, dict(zip(own, zip(pairs[0::2], pairs[1::2]))),
+                                           group=self.mesh.get_group("data"))
+                    by_knee = {i: pair for part in got for i, pair in part.items()}
+                    pairs = [m for i in range(len(images)) for m in by_knee[i]]
             for name, secs in sub.items():
                 timer.totals[f"thickness_{name}"] += secs
                 timer.counts[f"thickness_{name}"] += 1

@@ -50,11 +50,11 @@ def _runner(pipeline, tmp_path, **kw):
 
 
 def test_parallel_exports():
-    """The JAX package's `parallel` exports but its multi-device sharding
-    helpers (one card)."""
+    """The JAX package's `parallel` exports, in its order."""
     from oai_analysis_2_tpu_torch.parallel.batch import BatchKneePipeline
 
-    assert TP.__all__ == ["BatchKneePipeline", "CohortManifest", "CohortRunner"]
+    assert TP.__all__ == ["make_device_mesh", "make_sharded_train_step", "shard_batch", "CohortRunner",
+                          "CohortManifest", "BatchKneePipeline"]
     assert TP.CohortRunner is CohortRunner and TP.CohortManifest is CohortManifest
     assert TP.BatchKneePipeline is BatchKneePipeline
 

@@ -560,6 +560,21 @@ TRAIN_CASES = [
     ((2, 4, 8, 32, 1), 32, torch.bfloat16),
     ((2, 4, 6, 8, 5), 7, torch.float32),
     ((1, 4, 8, 16, 24), 48, torch.float32),
+    # the production tile (2 x 32x128x128) split over the z axis of 2 or more
+    # ranks: each level's block with its halo planes, as an end rank (16 + 1
+    # at level 0) and a middle rank (16 + 2) sees it: enc0a (cin1), enc0b
+    # (sm90; its data gradient sm90n), dec2a, enc1b, enc2b, enc3b
+    ((2, 17, 128, 128, 1), 32, torch.bfloat16),
+    ((2, 18, 128, 128, 1), 32, torch.bfloat16),
+    ((2, 17, 128, 128, 32), 64, torch.bfloat16),
+    ((2, 18, 128, 128, 32), 64, torch.bfloat16),
+    ((2, 17, 128, 128, 192), 64, torch.bfloat16),
+    ((2, 9, 64, 64, 64), 128, torch.bfloat16),
+    ((2, 10, 64, 64, 64), 128, torch.bfloat16),
+    ((2, 5, 32, 32, 128), 256, torch.bfloat16),
+    ((2, 6, 32, 32, 128), 256, torch.bfloat16),
+    ((2, 3, 16, 16, 256), 512, torch.bfloat16),
+    ((2, 4, 16, 16, 256), 512, torch.bfloat16),
 ]
 
 

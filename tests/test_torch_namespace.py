@@ -24,10 +24,7 @@ from oai_analysis_2_tpu_torch.ops.tiling import Partition as TPartition
 from oai_analysis_2_tpu_torch.utils import profiling as TProf
 
 SUBPACKAGES = ("core", "engine", "mesh", "models", "ops", "parallel", "utils")
-# the JAX package's sharding helpers: the port runs on one card
-ONE_CARD = {"make_device_mesh", "make_sharded_train_step", "shard_batch"}
-NAMES = [(sub, name) for sub in SUBPACKAGES
-         for name in importlib.import_module(f"oai_analysis_2_tpu.{sub}").__all__ if name not in ONE_CARD]
+NAMES = [(sub, name) for sub in SUBPACKAGES for name in importlib.import_module(f"oai_analysis_2_tpu.{sub}").__all__]
 
 
 @pytest.mark.parametrize("sub,name", NAMES, ids=[f"{s}.{n}" for s, n in NAMES])
@@ -37,18 +34,10 @@ def test_jax_subpackage_name_imports_from_the_port(sub, name):
     assert getattr(port, name) is not None
 
 
-@pytest.mark.parametrize("sub", [s for s in SUBPACKAGES if s != "parallel"])
+@pytest.mark.parametrize("sub", SUBPACKAGES)
 def test_subpackage_exports_the_jax_names_in_order(sub):
     want = importlib.import_module(f"oai_analysis_2_tpu.{sub}").__all__
     assert importlib.import_module(f"oai_analysis_2_tpu_torch.{sub}").__all__ == want
-
-
-def test_parallel_leaves_out_the_sharding_helpers():
-    import oai_analysis_2_tpu_torch.parallel as TPar
-
-    want = [n for n in importlib.import_module("oai_analysis_2_tpu.parallel").__all__ if n not in ONE_CARD]
-    assert sorted(TPar.__all__) == sorted(want)
-    assert not ONE_CARD & set(dir(TPar))
 
 
 def test_top_level_names():
