@@ -187,7 +187,23 @@ Phases, each fatal on failure (exit code 1, no result line):
    rank with the group up and no `host`, on 2 small knees a rank: each
    done once, every rank took some. One `phase sharding` JSON line
    carries the numbers per rank, beside the card, its power limit, the
-   device count and the backend.
+   device count and the backend;
+14. kmeans backends: `ops.clustering.kmeans_many` on the host (numpy, the
+   default) and on the card (`backend="device"`): (a) phase 4's knee's
+   split problems (its smoothed FC and TC meshes: 3 FC x-bands at d = 9,
+   TC at d = 6), (b) phase 10's two knees' problems repeated to the B = 8
+   set (32 problems); each problem's labels agree at least 99 % up to a
+   permutation and each mesh's inner and outer face counts are within 0.5
+   % of the host's; the host seconds and the device's end to end (upload,
+   solve, copy back, the card synchronised), each the median of 3; (c)
+   `KneePipeline.run` on phase 4's knee with `OAI_TPU_KMEANS_BACKEND=device`
+   (then restored): its meshes within phase 8's tolerances of phase 4's,
+   its launches equal to phase 4's (the device k-means launches no kernel
+   of its own), and the thickness substages on its maps with each
+   backend. Phase 11 trained phase 4's segmenter in place, so this phase
+   builds phase 4's pipeline afresh and holds its knee against phase 4's
+   first. One `phase kmeans` JSON line carries the numbers beside the
+   card and its power limit.
 
 Before the last line it prints one JSON object `{"kernels": [...]}` (per
 kernel and conv route: launches on the reported run, max error against the
@@ -2752,6 +2768,164 @@ def sharding(torch, card, knee_batch_ref) -> dict:
             "phase_s": time.perf_counter() - t0, "per_rank": ranks}
 
 
+# ---- phase 14: the k-means backends ------------------------------------------------
+
+KMEANS_REPS = 3
+# phase 10's two knees' split problems, repeated to the B = 8 set's
+B8_REPEAT = 4
+
+
+def split_specs(knees) -> list:
+    """Per knee (its FC and TC warped maps): the smoothed meshes as the
+    thickness stage makes them, then each mesh's split problems and
+    finisher (`mesh/split._split_problems`), in FC, TC order."""
+    from oai_analysis_2_tpu_torch.mesh.components import filter_small_components
+    from oai_analysis_2_tpu_torch.mesh.marching_cubes import marching_cubes_multi
+    from oai_analysis_2_tpu_torch.mesh.ops import smooth_meshes
+    from oai_analysis_2_tpu_torch.mesh.processing import _as_xyz, _spacing
+    from oai_analysis_2_tpu_torch.mesh.split import _split_problems
+
+    specs = []
+    for fc, tc in knees:
+        raws = [filter_small_components(m) for m in marching_cubes_multi([_as_xyz(fc), _as_xyz(tc)], 0.5,
+                                                                         _spacing(fc))]
+        specs += [_split_problems(m, kind) for m, kind in zip(smooth_meshes(raws, device=fc.device), ("FC", "TC"))]
+    return specs
+
+
+def label_agreement(a, b) -> float:
+    """The share of equal k = 2 labels under the better of the two
+    numberings."""
+    same = float(np.mean(np.asarray(a) == np.asarray(b)))
+    return max(same, 1.0 - same)
+
+
+def kmeans_backends(torch, specs, what) -> dict:
+    """`kmeans_many` on the specs' problems on the host and on the card:
+    seconds (median of `KMEANS_REPS`; the card's end to end, synchronised),
+    each problem's agreement and each mesh's inner and outer face counts
+    (gated: 99 %, 0.5 %), and one device call under torch.profiler (the
+    card's busy share of it, device milliseconds by kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from oai_analysis_2_tpu_torch.ops.clustering import kmeans_many
+
+    problems = [p for probs, _ in specs for p in probs]
+    runs, labels = {"host": [], "device": []}, {}
+    kmeans_many(problems, backend="device", device="cuda")  # the first call's allocations
+    for _ in range(KMEANS_REPS):
+        for backend in runs:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            labels[backend] = kmeans_many(problems, backend=backend, device="cuda")
+            torch.cuda.synchronize()
+            runs[backend].append(time.perf_counter() - t0)
+    host, dev = labels["host"], labels["device"]
+    agree = [label_agreement(h, d) for h, d in zip(host, dev)]
+    faces, i = [], 0
+    for probs, finish in specs:
+        n = len(probs)
+        (hi, ho), (di, do) = finish(host[i: i + n]), finish(dev[i: i + n])
+        faces.append({"host": [int(hi.n_cells), int(ho.n_cells)], "device": [int(di.n_cells), int(do.n_cells)]})
+        i += n
+    bad_faces = [f for f in faces if any(abs(d - h) > 0.005 * h for h, d in zip(f["host"], f["device"]))]
+    if min(agree) < 0.99 or bad_faces:
+        raise AssertionError(f"kmeans {what}: device labels agree {agree} with the host's (want >= 0.99), "
+                             f"inner / outer faces {faces} (want within 0.5 %)")
+    # one more device call under torch.profiler: where its time goes
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        kmeans_many(problems, backend="device", device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans, busy_us, by_name = device_spans(prof)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return {"problems": len(problems), "n_d": [list(p.shape) for p in problems],
+            "padded_n_max": max(len(p) for p in problems),
+            "host_s": runs["host"], "device_s": runs["device"],
+            "host_median_s": float(np.median(runs["host"])), "device_median_s": float(np.median(runs["device"])),
+            "agreement": agree, "faces": faces,
+            "device_profile": {"wall_s": wall, "device_events": len(spans), "device_busy_s": busy_us / 1e6,
+                               "device_busy_share": busy_us / 1e6 / wall if spans else None,
+                               "top_device_ms": {name[:90]: us / 1e3 for name, us in top}}}
+
+
+def kmeans_phase(torch, cuda_conv, cuda_kernels, card, phase4=None) -> dict:
+    """Phase 14: the k-means backends at the main path's problem sizes, on
+    a pipeline built afresh in phase 4's configuration (phase 11 trained
+    phase 4's segmenter in place). `phase4`: phase 4's report (its summary
+    and launches), which (c) is held against; None (this phase alone): the
+    fresh pipeline's own host-backend run."""
+    from oai_analysis_2_tpu_torch.bench import FULL, knee_and_atlas
+    from oai_analysis_2_tpu_torch.core.image import image_from_array
+    from oai_analysis_2_tpu_torch.mesh.processing import get_thickness_meshes
+
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    if os.environ.get("OAI_TPU_KMEANS_BACKEND", "host") != "host":
+        raise AssertionError("phase 14 needs the host k-means backend as the default")
+    pipe, knee = build_pipeline("cuda", FULL, batch_size=8)
+    pipe.run(knee)
+    reset_launches(cuda_conv, cuda_kernels)
+    result = pipe.run(knee)
+    torch.cuda.synchronize()
+    launches = read_launches(cuda_conv, cuda_kernels)
+    summary = summarize(result)
+    if phase4 is not None:
+        check_meshes_close(summary, phase4, 0.005, 0.01, "the fresh pipeline's knee against phase 4:")
+        if launches != phase4["launches"]:
+            raise AssertionError(f"the fresh pipeline's launches {launches}, phase 4 {phase4['launches']}")
+        summary, launches = phase4, phase4["launches"]
+    # (a) the network knee's four problems
+    out["a"] = kmeans_backends(torch, split_specs([(result.fc_probmap, result.tc_probmap)]), "(a) one knee")
+    # (b) phase 10's two knees, repeated to the B = 8 set
+    knee2 = image_from_array(knee_and_atlas(**dict(FULL, **SECOND_KNEE_SHELLS), seed=1)[0],
+                             spacing=(0.36, 0.36, 0.7), device="cuda")
+    second = pipe.run(knee2)
+    pair = split_specs([(result.fc_probmap, result.tc_probmap), (second.fc_probmap, second.tc_probmap)])
+    out["b"] = kmeans_backends(torch, pair * B8_REPEAT, f"(b) {2 * B8_REPEAT} knees")
+    del knee2, second
+
+    # (c) the network knee with the variable set, then restored
+    before = os.environ.get("OAI_TPU_KMEANS_BACKEND")
+    os.environ["OAI_TPU_KMEANS_BACKEND"] = "device"
+    try:
+        pipe.run(knee)
+        reset_launches(cuda_conv, cuda_kernels)
+        t0 = time.perf_counter()
+        res = pipe.run(knee)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got_launches = read_launches(cuda_conv, cuda_kernels)
+        substages = {"device": [], "host": []}
+        for _ in range(KMEANS_REPS):
+            sub = {}
+            get_thickness_meshes([res.fc_probmap, res.tc_probmap], ["FC", "TC"], timings_out=sub)
+            substages["device"].append(sub)
+    finally:
+        if before is None:
+            os.environ.pop("OAI_TPU_KMEANS_BACKEND", None)
+        else:
+            os.environ["OAI_TPU_KMEANS_BACKEND"] = before
+    if os.environ.get("OAI_TPU_KMEANS_BACKEND") != before:
+        raise AssertionError("OAI_TPU_KMEANS_BACKEND was not restored")
+    for _ in range(KMEANS_REPS):
+        sub = {}
+        get_thickness_meshes([res.fc_probmap, res.tc_probmap], ["FC", "TC"], timings_out=sub)
+        substages["host"].append(sub)
+    got = summarize(res)
+    check_meshes_close(got, summary, 0.005, 0.01, "(c) the knee with the device k-means against phase 4:")
+    if got_launches != launches:
+        raise AssertionError(f"(c) launches {got_launches} with the device k-means, phase 4 {launches}")
+    out["c"] = {"knee_seconds": wall, "stage_seconds": {k: v["seconds"] for k, v in res.timings.items()},
+                "launches": got_launches, "knee": got, "thickness_substages": substages,
+                "split_median_s": {b: float(np.median([s["split"] for s in subs])) for b, subs in substages.items()},
+                "thickness_median_s": {b: float(np.median([sum(s.values()) for s in subs]))
+                                       for b, subs in substages.items()}}
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3019,6 +3193,19 @@ def main() -> int:
             f"(own knees {r['e']['own_knees']} alone {r['e']['own_knees_alone_s']:.3f} s)")
     log(f"phase sharding ({shard['phase_s']:.1f} s, card {card}, {shard['ranks']} ranks over {shard['backend']}, "
         f"device_count {shard['device_count']}): {json.dumps(shard)}")
+
+    # ---- 14. the k-means backends ----------------------------------------------------
+    km = kmeans_phase(torch, cuda_conv, cuda_kernels, card, phase4=report)
+    for part in ("a", "b"):
+        r = km[part]
+        log(f"phase kmeans: ({part}) {r['problems']} problems (n_max {r['padded_n_max']}): host "
+            f"{r['host_median_s']:.4f} s, device {r['device_median_s']:.4f} s end to end; agreement "
+            f"{min(r['agreement']):.5f} at worst (card {card})")
+    log(f"phase kmeans: (c) knee {km['c']['knee_seconds']:.3f} s with the device k-means; split "
+        f"{km['c']['split_median_s']['device']:.4f} s on the device, {km['c']['split_median_s']['host']:.4f} s "
+        f"on the host; thickness {km['c']['thickness_median_s']['device']:.4f} / "
+        f"{km['c']['thickness_median_s']['host']:.4f} s")
+    log(f"phase kmeans ({km['phase_s']:.1f} s, card {card}): {json.dumps(km)}")
 
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

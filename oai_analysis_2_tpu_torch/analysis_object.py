@@ -60,7 +60,7 @@ def _phantom_models_dir() -> Path:
     cfg = cache / "segmentation_train_config.pth.tar"  # JSON; the reference names it so
     if not (ckpt.exists() and cfg.exists()):
         params = make_threshold_params(NETWORK_SPECS["UNet"].replace(bias=True), gain=24.0, threshold=0.5)
-        save_checkpoint({"params": params, "epoch": 600}, ckpt)
+        save_checkpoint({"params": params, "epoch": 600}, False, cache, name=ckpt.name)
         cfg_tmp = cache / f"segmentation_train_config.tmp{os.getpid()}"
         cfg_tmp.write_text(json.dumps({
             "patch_size": [128, 128, 32],

@@ -71,8 +71,10 @@ class AtlasThicknessMapper:
                 tc_p = read_nifti(tc_file, device=atlas_image.device)
         if fc_p is None:
             fc_p, tc_p = segmenter.segment(atlas_image, if_output_prob_map=True)
-        fc_inner, _ = split_mesh(get_mesh(fc_p, filter_threshold=filter_threshold), mesh_type="FC")
-        tc_inner, _ = split_mesh(get_mesh(tc_p, filter_threshold=filter_threshold), mesh_type="TC")
+        fc_inner, _ = split_mesh(get_mesh(fc_p, filter_threshold=filter_threshold), mesh_type="FC",
+                                 device=fc_p.device)
+        tc_inner, _ = split_mesh(get_mesh(tc_p, filter_threshold=filter_threshold), mesh_type="TC",
+                                 device=tc_p.device)
         return cls(fc_inner, tc_inner, grid_size=grid_size, device=atlas_image.device)
 
     def map_knee(self, fc_inner: Mesh, tc_inner: Mesh) -> dict:

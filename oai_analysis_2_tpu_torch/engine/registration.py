@@ -81,10 +81,10 @@ def register_pair(
     finetune_scales: Tuple[int, ...] = (2,),
     finetune_lr: float = 0.15,
     b_on_grid: Optional[torch.Tensor] = None,
-    a_on_grid: Optional[torch.Tensor] = None,
     gicon_grad: Optional[str] = None,
     early_stop: Optional[float] = None,
     quality_out: Optional[dict] = None,
+    a_on_grid: Optional[torch.Tensor] = None,
 ) -> Tuple[DisplacementField, DisplacementField]:
     """(phi_AB, phi_BA) as displacement fields; phi_AB pulls A-grid data onto
     B's grid (port of registration.py:131-244).
@@ -96,7 +96,8 @@ def register_pair(
     loaded raises `ValueError`. Without a model: instance optimization from
     the identity (`instance_scales`, `instance_steps`). `b_on_grid` is
     image_b already resampled onto its registration grid (the atlas cache),
-    `a_on_grid` the same for image_a. `gicon_grad` (None: the package
+    `a_on_grid` (the port's own, after JAX's parameters) the same for
+    image_a. `gicon_grad` (None: the package
     default) and `early_stop` are `register_pair_instance`'s. `quality_out`
     receives the inverse-consistency error (voxels and mm) and
     folded-Jacobian fractions as 0-d tensors."""

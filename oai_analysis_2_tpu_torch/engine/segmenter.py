@@ -174,6 +174,17 @@ class Segmenter3DInPatchClassWise(Segmenter):
     def _step_batch(cls, batch_size: int, n_tiles: int, tile_voxels: int, n_knees: int) -> int:
         return max(1, min(batch_size, n_tiles, cls.STEP_VOXEL_BUDGET // (tile_voxels * n_knees)))
 
+    def volume_fn(self, volume_shape: Tuple[int, int, int], batch_size: int, threshold: bool):
+        """volume (D, H, W) f32 -> (C, D, H, W) probability maps: the
+        one-knee form of `volume_fn_batched` (JAX `segmenter.py:218-229`;
+        the model holds the parameters, so `run` takes the volume alone)."""
+        run_b = self.volume_fn_batched(1, volume_shape, batch_size, threshold)
+
+        def run(volume: torch.Tensor) -> torch.Tensor:
+            return run_b(volume[None])[0]
+
+        return run
+
     def volume_fn_batched(self, n_knees: int, volume_shape: Tuple[int, int, int], batch_size: int,
                           threshold: bool):
         """volumes (B, D, H, W) f32 -> (B, C, D, H, W) probability maps. The

@@ -157,8 +157,8 @@ def _atlas_inner_meshes(obj):
             fc_p, tc_p = read_nifti(fc_file, device=obj.device), read_nifti(tc_file, device=obj.device)
     if fc_p is None:
         fc_p, tc_p = obj.segment(obj.atlas_image)
-    fc_inner_atlas, _ = split_mesh(get_mesh(fc_p), mesh_type="FC")
-    tc_inner_atlas, _ = split_mesh(get_mesh(tc_p), mesh_type="TC")
+    fc_inner_atlas, _ = split_mesh(get_mesh(fc_p), mesh_type="FC", device=fc_p.device)
+    tc_inner_atlas, _ = split_mesh(get_mesh(tc_p), mesh_type="TC", device=tc_p.device)
     return fc_inner_atlas, tc_inner_atlas
 
 

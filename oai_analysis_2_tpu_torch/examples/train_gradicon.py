@@ -54,7 +54,8 @@ def main(argv=None, device=None) -> Path:
         if i % 50 == 0:
             print(f"step {i}: loss {float(loss):.4f}")
         if i % 500 == 499 or i == steps - 1:
-            save_checkpoint({"params": {f"stage{k}": p for k, p in enumerate(model.params_list())}, "epoch": i}, out)
+            save_checkpoint({"params": {f"stage{k}": p for k, p in enumerate(model.params_list())}, "epoch": i},
+                            is_best=False, path=ckpt_dir, name=out.name)
     print("done; checkpoint at", out)
     return out
 

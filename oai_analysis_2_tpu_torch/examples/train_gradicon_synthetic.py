@@ -193,7 +193,9 @@ def main(argv=None, device=None) -> dict:
                         "grid_shape": list(shape),
                         "scales": list(cfg.scales),
                     },
-                    out_path,
+                    is_best=False,
+                    path=out_path.parent,
+                    name=out_path.name,
                 )
                 # the best-error sidecar lets a warm-restart cycle resume the
                 # tracker (GRADICON_BEST=$(cat out.best))

@@ -164,15 +164,28 @@ def smooth_mesh_groups(groups, num_iterations: int = 150, relaxation: float = 0.
     return [smooth_meshes(g, num_iterations, relaxation, device) for g in groups]
 
 
-def distance_to_surface_tensor(points: np.ndarray, target: Mesh, device=None) -> torch.Tensor:
-    """Unsigned exact distance from each point to `target`'s surface, left on
-    `device` (no host sync)."""
+def distance_to_surface_async(points: np.ndarray, target: Mesh, device=None):
+    """Start the distance kernel and return (distances on `device`, n)
+    without a host sync (JAX `mesh/ops.py:512-550`): a caller with many
+    meshes starts every launch before reading the first result. With no
+    target cells or no points, n is 0 and the tensor None. The tensor
+    holds exactly the n points' distances (the JAX array is padded)."""
     dev = resolve_device(device)
     if target.n_cells == 0 or len(points) == 0:
-        return torch.zeros(len(points), dtype=torch.float32, device=dev)
+        return None, 0
     pts = torch.as_tensor(np.ascontiguousarray(points, np.float32), device=dev)
     tris = torch.as_tensor(np.ascontiguousarray(target.triangles().reshape(-1, 9), np.float32), device=dev)
-    return point_triangle_distance(pts, tris)
+    return point_triangle_distance(pts, tris), len(points)
+
+
+def distance_to_surface_tensor(points: np.ndarray, target: Mesh, device=None) -> torch.Tensor:
+    """Unsigned exact distance from each point to `target`'s surface, left on
+    `device` (no host sync); zeros where `distance_to_surface_async` has
+    nothing to measure."""
+    d, _ = distance_to_surface_async(points, target, device)
+    if d is None:
+        return torch.zeros(len(points), dtype=torch.float32, device=resolve_device(device))
+    return d
 
 
 def distance_to_surface(points: np.ndarray, target: Mesh, device=None) -> np.ndarray:

@@ -4,7 +4,8 @@ exported here as there). Iso-surfaces: marching cubes ("mc", the default)
 or marching tetrahedra ("tets").
 
 Single-device form: the iso-surface and smoothing on the card, component
-filtering and the k-means split on the host, the point-to-triangle
+filtering on the host, the k-means split on the host (the default) or on
+the maps' device (`OAI_TPU_KMEANS_BACKEND=device`), the point-to-triangle
 distance through the hand-written kernel. The JAX version's multi-device
 placements of `get_thickness_meshes` (`smooth_sharding`,
 `distance_devices`, `mc_devices`) have no counterpart on one card.
@@ -28,22 +29,43 @@ from oai_analysis_2_tpu_torch.mesh.ops import (
     face_centroids,
     face_normals,
     get_distance,
+    map_attributes,
     smooth_mesh,
     smooth_mesh_groups,
     smooth_meshes,
 )
-from oai_analysis_2_tpu_torch.mesh.split import split_mesh, split_meshes
+from oai_analysis_2_tpu_torch.mesh.projection import (
+    get_cylinder,
+    get_projection_from_circle_and_vertice,
+    project_thickness,
+)
+from oai_analysis_2_tpu_torch.mesh.split import (
+    split_femoral_cartilage_surface,
+    split_mesh,
+    split_meshes,
+    split_tibial_cartilage_surface,
+)
 from oai_analysis_2_tpu_torch.mesh.types import Mesh
 
+# the JAX module's exports in its order (processing.py:39-55), then the
+# batched entry point the port exported before
 __all__ = [
     "get_cell_centroid",
     "get_cell_normals",
+    "get_distance",
     "get_mesh",
     "get_mesh_from_probability_map",
     "get_thickness_mesh",
-    "get_thickness_meshes",
     "get_vtk_mesh",
+    "map_attributes",
+    "project_thickness",
+    "smooth_mesh",
     "split_mesh",
+    "split_femoral_cartilage_surface",
+    "split_tibial_cartilage_surface",
+    "get_cylinder",
+    "get_projection_from_circle_and_vertice",
+    "get_thickness_meshes",
 ]
 
 
@@ -101,7 +123,7 @@ def get_thickness_mesh(image: Image, mesh_type: str = "FC", num_iterations: int 
     """One tissue's probability map -> (inner, outer) meshes with per-point
     thickness, the distance to the other surface."""
     mesh = get_mesh(image, num_iterations=num_iterations, method=method)
-    inner_mesh, outer_mesh = split_mesh(mesh, mesh_type)
+    inner_mesh, outer_mesh = split_mesh(mesh, mesh_type, device=image.device)
     return get_distance(inner_mesh, outer_mesh, device=image.device)
 
 
@@ -147,7 +169,7 @@ def get_thickness_meshes(images, mesh_types, num_iterations: int = 150, level: f
     else:
         smoothed = smooth_meshes(raws, num_iterations=num_iterations, device=dev)
     mark("smooth")
-    splits = split_meshes(smoothed, list(mesh_types))
+    splits = split_meshes(smoothed, list(mesh_types), device=dev)
     mark("split")
     pending = [
         (inner, outer, distance_to_surface_tensor(inner.vertices, outer, dev),

@@ -13,7 +13,7 @@ coordinate or thickness, where the JAX version casts NaN to an integer bin
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -50,8 +50,10 @@ def _rotate2d(pts: np.ndarray, angle_deg: float) -> np.ndarray:
     return pts @ rot
 
 
-def project_thickness(mapped_mesh: Mesh, mesh_type: str = "FC") -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """(x_2d, y_2d, thickness) per point."""
+def project_thickness(mapped_mesh: Mesh, mesh_type: str = "FC",
+                      embedded: Optional[np.ndarray] = None) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(x_2d, y_2d, thickness) per point. `embedded` is accepted as in the
+    JAX package (`mesh/projection.py:51-53`), whose body never reads it."""
     thickness = np.asarray(mapped_mesh.point_data, np.float32)
 
     if mesh_type == "FC":

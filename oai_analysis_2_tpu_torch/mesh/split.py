@@ -8,8 +8,10 @@ The reference's clustering splits (mesh_processing.py:197-294):
     band clustered separately on [normalized centroids, normals,
     (center - centroid) * normal], labels stitched; same +y orientation rule.
 
-Clustering is the host k-means (ops.clustering); the orientation heuristic
-— not RNG-stream identity — fixes which side is inner.
+Clustering is `ops.clustering.kmeans_many` on the backend that
+`OAI_TPU_KMEANS_BACKEND` names (host by default; "device" solves on
+`device`); the orientation heuristic — not label identity — fixes which
+side is inner.
 """
 
 from __future__ import annotations
@@ -89,7 +91,7 @@ def _femoral_problems(mesh: Mesh, face_normal, face_centroid, num_divisions: int
 def _split_problems(mesh: Mesh, mesh_type: str):
     """(problems, finisher(label_list) -> (inner, outer)) for one mesh —
     the clustering is deferred so `split_meshes` can solve every problem of
-    a batch in ONE device call (kmeans_many)."""
+    a batch in one `kmeans_many` call."""
     if mesh.n_cells < 2:
         # empty/degenerate surface (e.g. all-zero probability map): nothing to
         # split — return two empty meshes instead of crashing downstream
@@ -147,17 +149,19 @@ def split_femoral_cartilage_surface(
     )
 
 
-def split_mesh(mesh: Mesh, mesh_type: str = "FC") -> Tuple[Mesh, Mesh]:
+def split_mesh(mesh: Mesh, mesh_type: str = "FC", device=None) -> Tuple[Mesh, Mesh]:
     """Dispatch FC/TC split (reference split_mesh, mesh_processing.py:353-377)."""
-    return split_meshes([mesh], [mesh_type])[0]
+    return split_meshes([mesh], [mesh_type], device)[0]
 
 
-def split_meshes(meshes, mesh_types):
+def split_meshes(meshes, mesh_types, device=None):
     """Split several meshes; returns [(inner, outer), ...] identical to
-    per-mesh `split_mesh`."""
+    per-mesh `split_mesh`. Every clustering problem goes to one
+    `kmeans_many` call; `device` is where the device backend solves them
+    (None: the card), unused on the host backend."""
     specs = [_split_problems(m, t) for m, t in zip(meshes, mesh_types)]
     flat = [p for problems, _ in specs for p in problems]
-    solutions = kmeans_many(flat, k=2)
+    solutions = kmeans_many(flat, k=2, device=device)
     out = []
     i = 0
     for problems, finish in specs:

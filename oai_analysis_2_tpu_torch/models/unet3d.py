@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -134,11 +134,13 @@ def param_shapes(spec: UNetSpec) -> Dict[str, Dict[str, tuple]]:
     return shapes
 
 
-def make_threshold_params(spec: UNetSpec, gain: float = 24.0, threshold: float = 0.5) -> dict:
+def make_threshold_params(model: Union["UNet3D", UNetSpec], gain: float = 24.0, threshold: float = 0.5) -> dict:
     """Numpy weights that make the UNet compute `sigmoid(gain * (x -
     threshold))` per class through the real topology (port of
     unet3d.py:285-332): identity taps input -> enc0a ch0 -> enc0b ch0 ->
-    skip -> dec{last}a/b, and the threshold shift in the head bias."""
+    skip -> dec{last}a/b, and the threshold shift in the head bias.
+    `model` is a `UNet3D`, as JAX's first argument, or its `UNetSpec`."""
+    spec = model.spec if isinstance(model, UNet3D) else model
     if not spec.bias:
         raise ValueError("threshold params need spec.bias=True for the shift")
     params = {

@@ -65,20 +65,37 @@ def load_checkpoint(file) -> dict:
     return state
 
 
-def save_checkpoint(state: dict, file) -> Path:
+def _write_npz(file: Path, meta: dict, arrays: dict) -> None:
+    """np.savez to `file` atomically (temp name + os.replace); like np.savez,
+    a name without the .npz suffix gets it."""
+    if file.suffix != ".npz":
+        file = file.with_name(file.name + ".npz")
+    tmp = file.with_name(f"{file.stem}.tmp{os.getpid()}.npz")
+    np.savez(tmp, __meta__=json.dumps(meta), **arrays)
+    os.replace(tmp, file)
+
+
+def save_checkpoint(state: dict, is_best: bool, path, prefix: Optional[str] = None,
+                    name: str = "checkpoint.npz") -> Path:
     """Write `state` (dict-valued entries are trees, the rest scalar
-    metadata) in the same format, atomically (temp name + os.replace)."""
-    file = Path(file)
-    file.parent.mkdir(parents=True, exist_ok=True)
+    metadata) to `path / name` (`prefix_name` with a prefix), and with
+    `is_best` also `model_best.npz` (`prefix_model_best.npz`) without the
+    `opt_state*` leaves: the JAX package's signature and files
+    (`utils/checkpoint.py:56-87`), each written atomically. Returns the
+    checkpoint's path."""
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    file = path / (f"{prefix}_{name}" if prefix else name)
     arrays, meta = {}, {}
     for k, v in state.items():
         if isinstance(v, dict):
             arrays.update(flatten_tree({k: v}))
         elif v is not None:
             meta[k] = float(v) if isinstance(v, (int, float, np.floating)) else v
-    tmp = file.with_name(f"{file.stem}.tmp{os.getpid()}.npz")
-    np.savez(tmp, __meta__=json.dumps(meta), **arrays)
-    os.replace(tmp, file)
+    _write_npz(file, meta, arrays)
+    if is_best:
+        best = {k: v for k, v in arrays.items() if not k.startswith("opt_state")}
+        _write_npz(path / (f"{prefix}_model_best.npz" if prefix else "model_best.npz"), meta, best)
     return file
 
 

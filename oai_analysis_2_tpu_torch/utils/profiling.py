@@ -22,6 +22,16 @@ import torch
 from oai_analysis_2_tpu_torch.core.device import synchronize
 
 
+def _devices_of(tree) -> set:
+    if torch.is_tensor(tree):
+        return {tree.device}
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return set().union(*(_devices_of(t) for t in tree))
+    return set()
+
+
 class StageTimer:
     """Accumulates wall time per named stage."""
 
@@ -31,12 +41,17 @@ class StageTimer:
         self.counts: Dict[str, int] = defaultdict(int)
 
     @contextlib.contextmanager
-    def stage(self, name: str):
+    def stage(self, name: str, sync=None):
+        """Time a stage, waiting for the timer's device at its end and, as
+        JAX's `sync=arrays` does, for the devices of the tensors in `sync`
+        (a tensor, or lists, tuples and dicts of them)."""
         t0 = time.perf_counter()
         try:
             yield
         finally:
             synchronize(self.device)
+            for dev in _devices_of(sync) - {self.device}:
+                synchronize(dev)
             self.totals[name] += time.perf_counter() - t0
             self.counts[name] += 1
 

@@ -49,7 +49,7 @@ def seg_config(tmp_path_factory):
         "model_setting": {"in_channels": 1, "n_classes": 2, "bias": True, "BN": False},
     }))
     params = make_threshold_params(NETWORK_SPECS["UNet_light4"].replace(bias=True))
-    save_checkpoint({"params": params, "epoch": 1}, tmp / "seg.npz")
+    save_checkpoint({"params": params, "epoch": 1}, False, tmp, name="seg.npz")
     return {"ckpoint_path": str(tmp / "seg.npz"), "training_config_file": str(tmp / "cfg.json"),
             "batch_size": 4, "overlap_size": (8, 8, 2), "compute_dtype": "float32"}
 

@@ -240,7 +240,8 @@ def test_initialize_model_matches(tmp_path, source):
     path = None
     if source == "npz":
         params = TC.export_params(tmodel.init(torch.Generator().manual_seed(3)))
-        path = TC.save_checkpoint({"params": params, "epoch": 7, "best_score": 0.625}, tmp_path / "ck.npz")
+        path = TC.save_checkpoint({"params": params, "epoch": 7, "best_score": 0.625}, False, tmp_path,
+                                  name="ck.npz")
     elif source == "pth.tar":
         path = tmp_path / "segmentation_model.pth.tar"
         torch.save({"model_state_dict": _oracle(spec).state_dict(), "epoch": 600, "best_score": 0.875}, path)
@@ -280,3 +281,48 @@ def test_weight_from_truth_matches(n_classes, absent):
     if absent is not None:
         assert float(got[absent]) == 0.0
     np.testing.assert_allclose(TC.weight_from_truth(labels, n_classes).numpy(), want, atol=1e-6, rtol=1e-6)
+
+
+def _training_state(seed: int) -> dict:
+    rng = np.random.default_rng(seed)
+    return {
+        "params": {"enc0a": {"kernel": rng.normal(size=(3, 3, 3, 1, 4)).astype(np.float32),
+                             "bias": rng.normal(size=4).astype(np.float32)}},
+        "opt_state_flat": {"mu": {"enc0a": {"kernel": rng.normal(size=(3, 3, 3, 1, 4)).astype(np.float32)}},
+                           "count": np.asarray(3, np.int32)},
+        "epoch": 5, "best_score": 0.75, "note": None,
+    }
+
+
+@pytest.mark.parametrize("prefix,name", [(None, "checkpoint.npz"), ("seg", "checkpoint.npz"), (None, "seg.npz")])
+@pytest.mark.parametrize("is_best", [False, True])
+def test_save_checkpoint_jax_form(tmp_path, prefix, name, is_best):
+    """`save_checkpoint(state, is_best, path, prefix, name)`, JAX's call, in
+    both packages: the same files (`[prefix_]name`, and with `is_best`
+    `[prefix_]model_best.npz` without the `opt_state*` leaves), no temp
+    file left, and each package's `load_checkpoint` reads the other's files
+    with equal arrays and metadata."""
+    state = _training_state(4)
+    written = {}
+    for pkg, mod in (("port", TC), ("jax", JC)):
+        out = mod.save_checkpoint(state, is_best, tmp_path / pkg, prefix=prefix, name=name)
+        assert out == tmp_path / pkg / (f"{prefix}_{name}" if prefix else name)
+        written[pkg] = sorted(p.name for p in (tmp_path / pkg).iterdir())
+    want = [f"{prefix}_{name}" if prefix else name]
+    if is_best:
+        want.append(f"{prefix}_model_best.npz" if prefix else "model_best.npz")
+    assert written["port"] == written["jax"] == sorted(want)
+    for fname in want:
+        for reader, pkg in ((TC.load_checkpoint, "jax"), (JC.load_checkpoint, "port")):
+            got = reader(tmp_path / pkg / fname)
+            ours = TC.load_checkpoint(tmp_path / ("port" if pkg == "jax" else "jax") / fname)
+            assert (got["epoch"], got["best_score"]) == (ours["epoch"], ours["best_score"]) == (5, 0.75)
+            assert "note" not in got
+            assert ("opt_state_flat" in got) == (not fname.endswith("model_best.npz"))
+            flat_got = TC.flatten_tree({k: v for k, v in got.items() if isinstance(v, dict)})
+            flat_ours = TC.flatten_tree({k: v for k, v in ours.items() if isinstance(v, dict)})
+            assert set(flat_got) == set(flat_ours)
+            for k, v in flat_ours.items():
+                np.testing.assert_array_equal(np.asarray(flat_got[k]), v, err_msg=k)
+    np.testing.assert_array_equal(TC.load_checkpoint(tmp_path / "port" / want[0])["params"]["enc0a"]["kernel"],
+                                  state["params"]["enc0a"]["kernel"])

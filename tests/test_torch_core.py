@@ -122,7 +122,7 @@ def seg_files(tmp_path_factory):
     rng = np.random.default_rng(5)
     for name in ("enc0b", "enc1a", "dec0a"):  # perturb so every conv carries signal
         params[name]["kernel"] = params[name]["kernel"] + rng.normal(0, 0.05, params[name]["kernel"].shape).astype(np.float32)
-    save_checkpoint({"params": params, "epoch": 3, "best_score": 0.5}, tmp / "seg.npz")
+    save_checkpoint({"params": params, "epoch": 3, "best_score": 0.5}, False, tmp, name="seg.npz")
     return tmp
 
 

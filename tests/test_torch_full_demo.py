@@ -42,7 +42,8 @@ def small_phantom_setup(calls, models_dir):
     and the release fixture's knee; `calls` records what the object's
     segment and register returned."""
     spec = NETWORK_SPECS["UNet_light4"].replace(bias=True)
-    save_checkpoint({"params": make_threshold_params(spec), "epoch": 1}, models_dir / "segmentation_model.npz")
+    save_checkpoint({"params": make_threshold_params(spec), "epoch": 1}, False, models_dir,
+                    name="segmentation_model.npz")
     (models_dir / "segmentation_train_config.pth.tar").write_text(json.dumps({
         "patch_size": [32, 32, 16], "model": "UNet_light4",
         "model_setting": {"in_channels": 1, "n_classes": 2, "bias": True, "BN": False}}))

@@ -258,7 +258,7 @@ def test_checkpoint_both_ways(tmp_path):
                                                                             zero_heads=False)
     meta = {"stage_width": 2, "grid_shape": list(GRID), "scales": [2, 1]}
     save_checkpoint({"params": {f"stage{k}": p for k, p in enumerate(model.params_list())}, "epoch": 3, **meta},
-                    tmp_path / "port.npz")
+                    False, tmp_path, name="port.npz")
     jparams, jmeta = JG.load_gradicon_checkpoint(tmp_path / "port.npz")
     assert jmeta == {"stage_width": 2, "grid_shape": GRID, "scales": (2, 1)}
     assert int(jload_checkpoint(tmp_path / "port.npz")["epoch"]) == 3
@@ -296,7 +296,7 @@ def test_serving_after_training_builds_no_graph(tmp_path):
     (tmp_path / "cfg.json").write_text(json.dumps({
         "patch_size": [8, 8, 4], "model": "UNet_light4",
         "model_setting": {"in_channels": 1, "n_classes": 2, "bias": True, "BN": False}}))
-    save_checkpoint({"params": export_params(UNet3D(spec, device="cpu").init())}, tmp_path / "seg.npz")
+    save_checkpoint({"params": export_params(UNet3D(spec, device="cpu").init())}, False, tmp_path, name="seg.npz")
     seg = Segmenter3DInPatchClassWise("pred", {
         "device": "cpu", "batch_size": 2, "overlap_size": (2, 2, 1), "compute_dtype": "float32",
         "ckpoint_path": str(tmp_path / "seg.npz"), "training_config_file": str(tmp_path / "cfg.json")})

@@ -62,7 +62,7 @@ def inputs(tmp_path_factory):
         "model_setting": {"in_channels": 1, "n_classes": 2, "bias": True, "BN": False},
     }))
     params = make_threshold_params(NETWORK_SPECS["UNet_light4"].replace(bias=True))
-    save_checkpoint({"params": params, "epoch": 1}, tmp / "seg.npz")
+    save_checkpoint({"params": params, "epoch": 1}, False, tmp, name="seg.npz")
     config = {"ckpoint_path": str(tmp / "seg.npz"), "training_config_file": str(tmp / "cfg.json"),
               "batch_size": 2, "overlap_size": (4, 4, 2), "compute_dtype": "float32"}
     return knee, atlas, config

@@ -91,7 +91,7 @@ def test_prewarm_report_on_the_cpu(tmp_path, monkeypatch):
     models = tmp_path / "models"
     models.mkdir()
     save_checkpoint({"params": make_threshold_params(NETWORK_SPECS["UNet_light4"].replace(bias=True)), "epoch": 1},
-                    models / "segmentation_model.npz")
+                    False, models, name="segmentation_model.npz")
     (models / "segmentation_train_config.pth.tar").write_text(json.dumps({
         "patch_size": [32, 32, 16], "model": "UNet_light4",
         "model_setting": {"in_channels": 1, "n_classes": 2, "bias": True, "BN": False}}))

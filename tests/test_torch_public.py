@@ -1,8 +1,11 @@
 """The small public functions of ported modules against the JAX package:
 intensity normalisation and comparison, sampling at physical points, the
-mesh helpers of `mesh/processing.py`, `ParameterDict`, the profiler trace
-and the segmenter's Dice evaluation. Same seeded numpy inputs, on the CPU,
-tolerances stated per test."""
+mesh helpers of `mesh/processing.py`, `ParameterDict`, the profiler trace,
+the segmenter's Dice evaluation and its one-knee `volume_fn`, and the
+JAX-style calls the API audit (`test_torch_api_parity.py`) found refused:
+`distance_to_surface_async`, `make_threshold_params(model)`,
+`project_thickness(..., embedded=)`, `StageTimer.stage(name, sync=)`. Same
+seeded numpy inputs, on the CPU, tolerances stated per test."""
 
 import json
 
@@ -14,19 +17,23 @@ import jax.numpy as jnp
 
 from oai_analysis_2_tpu.core.image import image_from_array as jimage
 from oai_analysis_2_tpu.engine.segmenter import Segmenter3DInPatchClassWise as JSeg
+from oai_analysis_2_tpu.mesh import ops as JO
 from oai_analysis_2_tpu.mesh import processing as JP
+from oai_analysis_2_tpu.mesh import projection as JPJ
 from oai_analysis_2_tpu.ops import intensity as JN
 from oai_analysis_2_tpu.ops import resample as JRS
 from oai_analysis_2_tpu.utils.config import ParameterDict as JParams
 from oai_analysis_2_tpu_torch.core.image import image_from_array as timage
 from oai_analysis_2_tpu_torch.engine.segmenter import Segmenter3DInPatchClassWise as TSeg
+from oai_analysis_2_tpu_torch.mesh import ops as TO
 from oai_analysis_2_tpu_torch.mesh import processing as TP
-from oai_analysis_2_tpu_torch.models.unet3d import NETWORK_SPECS, make_threshold_params
+from oai_analysis_2_tpu_torch.mesh import projection as TPJ
+from oai_analysis_2_tpu_torch.models.unet3d import NETWORK_SPECS, UNet3D, make_threshold_params
 from oai_analysis_2_tpu_torch.ops import intensity as TN
 from oai_analysis_2_tpu_torch.ops import resample as TRS
 from oai_analysis_2_tpu_torch.utils.checkpoint import save_checkpoint
 from oai_analysis_2_tpu_torch.utils.config import ParameterDict as TParams
-from oai_analysis_2_tpu_torch.utils.profiling import trace
+from oai_analysis_2_tpu_torch.utils.profiling import StageTimer, trace
 
 torch.set_num_threads(2)
 
@@ -174,7 +181,7 @@ def test_segmenter_dice_matches(tmp_path):
         "model_setting": {"in_channels": 1, "n_classes": 2, "bias": True, "BN": False},
     }))
     save_checkpoint({"params": make_threshold_params(NETWORK_SPECS["UNet_light4"].replace(bias=True)), "epoch": 1},
-                    tmp_path / "seg.npz")
+                    False, tmp_path, name="seg.npz")
     config = {"ckpoint_path": str(tmp_path / "seg.npz"), "training_config_file": str(tmp_path / "cfg.json"),
               "batch_size": 2, "overlap_size": (4, 4, 2), "compute_dtype": "float32"}
     rng = np.random.default_rng(3)
@@ -187,3 +194,115 @@ def test_segmenter_dice_matches(tmp_path):
     np.testing.assert_allclose(np.asarray(got["per_volume_dice"]), np.asarray(want["per_volume_dice"]), atol=1e-6)
     np.testing.assert_allclose(got["mean_dice"], want["mean_dice"], atol=1e-6)
     assert 0.5 < got["per_volume_dice"][0][0] <= 1.0
+
+
+def _seg_config(tmp_path) -> dict:
+    """A threshold-weights UNet_light4 (two of its convs perturbed, so every
+    level carries signal) written by the port, read by both packages."""
+    (tmp_path / "cfg.json").write_text(json.dumps({
+        "patch_size": [32, 32, 16], "model": "UNet_light4",
+        "model_setting": {"in_channels": 1, "n_classes": 2, "bias": True, "BN": False},
+    }))
+    params = make_threshold_params(NETWORK_SPECS["UNet_light4"].replace(bias=True))
+    rng = np.random.default_rng(8)
+    for name in ("enc0b", "dec0a"):
+        params[name]["kernel"] = params[name]["kernel"] + rng.normal(0, 0.05, params[name]["kernel"].shape).astype(
+            np.float32)
+    save_checkpoint({"params": params, "epoch": 1}, False, tmp_path, name="seg.npz")
+    return {"ckpoint_path": str(tmp_path / "seg.npz"), "training_config_file": str(tmp_path / "cfg.json"),
+            "batch_size": 2, "overlap_size": (4, 4, 2), "compute_dtype": "float32"}
+
+
+@pytest.mark.parametrize("threshold", [False, True])
+def test_volume_fn_matches(tmp_path, threshold):
+    """`volume_fn(shape, batch, threshold)` on a 13x40x36 volume: equal to
+    `segment`'s maps (probabilities) or to them above 0.5 (threshold), and
+    to JAX's `volume_fn` within the segmenter's f32 tolerance, 1e-4; with
+    the threshold, a voxel may differ only where JAX's probability lies
+    within 1e-4 of 0.5."""
+    config = _seg_config(tmp_path)
+    tseg, jseg = TSeg("pred", dict(config, device="cpu")), JSeg("pred", dict(config))
+    tseg.pred_setup()
+    jseg.pred_setup()
+    vol = np.random.default_rng(9).uniform(0, 1, (13, 40, 36)).astype(np.float32)
+    got = tseg.volume_fn(vol.shape, 2, threshold)(torch.from_numpy(vol)).numpy()
+    assert got.shape == (2, 13, 40, 36)
+    fc, tc = tseg.segment(timage(vol, device="cpu"))
+    probs = torch.stack([fc.data, tc.data]).numpy()
+    np.testing.assert_array_equal(got, (probs > 0.5).astype(np.float32) if threshold else probs)
+    want = np.asarray(jseg.volume_fn(vol.shape, 2, threshold)(jseg.params, jnp.asarray(vol)))
+    if not threshold:
+        np.testing.assert_allclose(got, want, atol=1e-4)
+        assert want.max() > 0.5
+    else:
+        jprobs = np.asarray(jseg.volume_fn(vol.shape, 2, False)(jseg.params, jnp.asarray(vol)))
+        differ = got != want
+        assert np.all(np.abs(jprobs[differ] - 0.5) < 1e-4), int(differ.sum())
+        assert 0 < want.mean() < 1
+
+
+def test_distance_to_surface_async_matches():
+    """`distance_to_surface_async` on the CPU: (distances, n) equal to
+    `distance_to_surface`, within 1e-5 mm of JAX's (its array padded,
+    sliced to n); no target cells or no points give (None, 0) in both."""
+    mesh = TP.get_mesh_from_probability_map(timage(_ball(), device="cpu", spacing=(0.5, 0.6, 0.7)))
+    pts = np.random.default_rng(10).uniform(0, 12, (301, 3)).astype(np.float32)
+    d, n = TO.distance_to_surface_async(pts, mesh, device="cpu")
+    assert n == 301 and isinstance(d, torch.Tensor) and d.shape == (301,)
+    np.testing.assert_array_equal(d.numpy(), TO.distance_to_surface(pts, mesh, device="cpu"))
+    jd, jn = JO.distance_to_surface_async(pts, mesh)
+    assert jn == n
+    np.testing.assert_allclose(d.numpy(), np.asarray(jd)[:jn], atol=1e-5)
+    empty = type(mesh)(np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int32))
+    for args in ((pts, empty), (pts[:0], mesh)):
+        assert TO.distance_to_surface_async(*args, device="cpu") == (None, 0) == JO.distance_to_surface_async(*args)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TO.distance_to_surface_async(pts, mesh)
+
+
+def test_make_threshold_params_takes_the_model():
+    """The JAX call `make_threshold_params(model, ...)` with a `UNet3D`
+    gives the same tree as the `UNetSpec` form, and JAX's (bit for bit)."""
+    from oai_analysis_2_tpu.models.unet3d import NETWORK_SPECS as JSPECS
+    from oai_analysis_2_tpu.models.unet3d import UNet3D as JUNet
+    from oai_analysis_2_tpu.models.unet3d import make_threshold_params as jthreshold
+    from oai_analysis_2_tpu_torch.utils.checkpoint import flatten_tree
+
+    spec = NETWORK_SPECS["UNet_light4"].replace(bias=True)
+    by_model = flatten_tree(make_threshold_params(UNet3D(spec, device="cpu"), gain=12.0, threshold=0.4))
+    by_spec = flatten_tree(make_threshold_params(spec, 12.0, 0.4))
+    jax_tree = flatten_tree(jthreshold(JUNet(JSPECS["UNet_light4"].replace(bias=True)), gain=12.0, threshold=0.4))
+    assert set(by_model) == set(by_spec) == set(jax_tree)
+    for k in by_model:
+        np.testing.assert_array_equal(by_model[k], by_spec[k])
+        np.testing.assert_array_equal(by_model[k], np.asarray(jax_tree[k]), err_msg=k)
+    with pytest.raises(ValueError, match="bias"):
+        make_threshold_params(UNet3D(NETWORK_SPECS["UNet_light4"].replace(bias=False), device="cpu"))
+
+
+@pytest.mark.parametrize("mesh_type", ["FC", "TC"])
+def test_project_thickness_takes_embedded(mesh_type):
+    """`project_thickness(mesh, mesh_type, embedded=...)` (JAX's keyword,
+    which neither body reads) returns what the call without it returns,
+    and JAX's within 1e-4."""
+    mesh = TP.get_mesh_from_probability_map(timage(_shell_cap(), device="cpu", spacing=(0.5, 0.5, 0.7)))
+    mesh.vertices = mesh.vertices * np.float32(8.0)  # the TC plateaus split at z = 50
+    mesh.point_data = np.linalg.norm(mesh.vertices, axis=1).astype(np.float32)
+    plain = TPJ.project_thickness(mesh, mesh_type)
+    got = TPJ.project_thickness(mesh, mesh_type, embedded=np.zeros((mesh.n_points, 2), np.float32))
+    want = JPJ.project_thickness(mesh, mesh_type, embedded=None)
+    for p, g, w in zip(plain, got, want):
+        np.testing.assert_array_equal(g, p)
+        np.testing.assert_allclose(g, np.asarray(w), atol=1e-4, rtol=1e-4)
+
+
+def test_stage_timer_takes_sync():
+    """`StageTimer.stage(name, sync=tensors)`, JAX's form: the stage is
+    timed and counted with a tensor, a tree of them or None."""
+    timer = StageTimer()
+    for sync in (torch.ones(3), [torch.ones(2), {"b": (torch.zeros(1),)}], None):
+        with timer.stage("s", sync=sync):
+            torch.ones(8).sum()
+    with timer.stage("s"):
+        pass
+    assert timer.report()["s"]["calls"] == 4

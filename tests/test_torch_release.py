@@ -130,7 +130,7 @@ def release(tmp_path_factory):
            root / "knee48.nii.gz")
     # the shipped GradICON weights, recorded for the 16x32x32 grid
     state = load_checkpoint(TG.default_gradicon_weights_path())
-    save_checkpoint(dict(state, grid_shape=list(GRID)), root / "gradicon16.npz")
+    save_checkpoint(dict(state, grid_shape=list(GRID)), False, root, name="gradicon16.npz")
     return root
 
 
@@ -202,7 +202,7 @@ def test_analysis_object_from_release(env, tmp_path):
     npz_dir = tmp_path / "models"
     npz_dir.mkdir()
     save_checkpoint({"params": make_threshold_params(NETWORK_SPECS[MODEL].replace(bias=True)), "epoch": 3},
-                    npz_dir / "segmentation_model.npz")
+                    False, npz_dir, name="segmentation_model.npz")
     (npz_dir / "segmentation_train_config.pth.tar").write_text(
         (env / "data" / "models" / "segmentation_train_config.pth.tar").read_text())
     tobj, _ = _objects(models_path=npz_dir)

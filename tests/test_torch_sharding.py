@@ -351,7 +351,7 @@ def _batch_inputs(tmp_path):
         "model_setting": {"in_channels": 1, "n_classes": 2, "bias": True, "BN": False},
     }))
     save_checkpoint({"params": TU.make_threshold_params(TU.NETWORK_SPECS["UNet_light4"].replace(bias=True)),
-                     "epoch": 1}, tmp_path / "seg.npz")
+                     "epoch": 1}, False, tmp_path, name="seg.npz")
     seg_config = {"ckpoint_path": str(tmp_path / "seg.npz"), "training_config_file": str(tmp_path / "cfg.json"),
                   "batch_size": 4, "overlap_size": [8, 8, 2], "compute_dtype": "float32"}
     rng = np.random.default_rng(3)
