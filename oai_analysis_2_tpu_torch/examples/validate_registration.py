@@ -113,14 +113,33 @@ def ground_truth(pts: np.ndarray, amp: float = GT_AMPLITUDE_MM) -> np.ndarray:
     ).astype(np.float32)
 
 
-def main(argv=None, device=None) -> dict:
+def ulp_perturb(vol: np.ndarray, share: float = 0.01, seed: int = 0) -> np.ndarray:
+    """A copy of the f32 `vol` with round(share * size) voxels, drawn from
+    `default_rng(seed)`, each moved by exactly one f32 ulp (`np.nextafter`,
+    up or down at random): a change of rounding only."""
+    vol = np.asarray(vol, np.float32)
+    rng = np.random.default_rng(seed)
+    flat = vol.ravel().copy()
+    idx = rng.choice(flat.size, size=int(round(share * flat.size)), replace=False)
+    toward = np.where(rng.integers(0, 2, idx.size) == 1, np.float32(np.inf), np.float32(-np.inf))
+    flat[idx] = np.nextafter(flat[idx], toward)
+    return flat.reshape(vol.shape)
+
+
+def main(argv=None, device=None, perturb=None) -> dict:
     """Run as the module's docstring says; returns the printed numbers
     (seconds with the card synchronized, the image MSE before and after,
-    the field error's mean, median and p95 in mm) and the mode."""
+    the field error's mean, median and p95 in mm) and the mode.
+
+    perturb: None, or (seed, share) to move a share of the phantom's voxels
+    by one ulp each (`ulp_perturb`) before the run; the anatomy mask stays
+    the unperturbed phantom's."""
     a = parse_args(sys.argv[1:] if argv is None else argv)
     dev = resolve_device(device)
     shape = a["shape"]
     vol, shell = phantom(shape)
+    if perturb is not None:
+        vol = ulp_perturb(vol, share=perturb[1], seed=perturb[0])
     fixed = image_from_array(vol, spacing=SPACING, device=dev)
 
     pts_t = physical_grid(shape, fixed.origin, fixed.spacing, fixed.direction)

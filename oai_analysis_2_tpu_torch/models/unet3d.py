@@ -30,6 +30,7 @@ statistics and also returns the updated running statistics (JAX
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Dict, Optional, Tuple, Union
@@ -38,7 +39,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from oai_analysis_2_tpu_torch.core.device import resolve_device
+from oai_analysis_2_tpu_torch.core.device import ieee_f32_matmul, resolve_device
 from oai_analysis_2_tpu_torch.ops.cuda_conv import conv3d, conv3d_train
 
 
@@ -218,11 +219,18 @@ def maxpool2x(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(n, d2, 2, h2, 2, w2, 2, c).amax(dim=(2, 4, 6))
 
 
+def _products(dtype: torch.dtype):
+    """The context for a plain product in `dtype`: IEEE f32 for f32 operands
+    (`core.device.ieee_f32_matmul`), none for bf16."""
+    return ieee_f32_matmul() if dtype == torch.float32 else contextlib.nullcontext()
+
+
 def _pointwise(x: torch.Tensor, blk: _Block) -> torch.Tensor:
     """1x1x1 conv as one product in the compute dtype (the JAX path's bf16
     conv output is rounded to bf16 before the f32 bias)."""
     k = blk.kernel.to(x.dtype)
-    y = (x @ k[0, 0, 0]).to(torch.float32)
+    with _products(x.dtype):
+        y = (x @ k[0, 0, 0]).to(torch.float32)
     if blk.bias is not None:
         y = y + blk.bias
     return y
@@ -235,7 +243,8 @@ def upconv2x(x: torch.Tensor, blk: _Block) -> torch.Tensor:
     n, d, h, wd, cin = x.shape
     cout = w.shape[-1]
     wm = w.permute(3, 0, 1, 2, 4).reshape(cin, 8 * cout)
-    y = (x @ wm).to(torch.float32)
+    with _products(x.dtype):
+        y = (x @ wm).to(torch.float32)
     y = y.reshape(n, d, h, wd, 2, 2, 2, cout)
     y = y.permute(0, 1, 4, 2, 5, 3, 6, 7).reshape(n, 2 * d, 2 * h, 2 * wd, cout)
     if blk.bias is not None:

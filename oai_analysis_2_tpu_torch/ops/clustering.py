@@ -15,8 +15,8 @@ Lloyd schedule in float32. `backend=None` reads `OAI_TPU_KMEANS_BACKEND`
   padded rows weighted 0 and masked out of the farthest-point start, all
   `n_iter` steps with no host sync inside the loop, a centre whose count
   is 0 kept in place. One upload, one copy back. The one-hot sums
-  `onehot^T @ x` go through `torch.matmul` in f32; they assume TF32 is off
-  for matmuls (`torch.backends.cuda.matmul.allow_tf32`, False by default).
+  `onehot^T @ x` go through `torch.matmul` in IEEE f32 whatever the
+  caller's TF32 switches say (`core.device.ieee_f32_matmul`).
 
 Label identity does not matter downstream: `mesh/split.py` re-derives inner
 and outer from the normals.
@@ -29,7 +29,7 @@ import os
 import numpy as np
 import torch
 
-from oai_analysis_2_tpu_torch.core.device import resolve_device
+from oai_analysis_2_tpu_torch.core.device import ieee_f32_matmul, resolve_device
 
 
 def _kmeans_np(x: np.ndarray, k: int, n_iter: int):
@@ -91,7 +91,8 @@ def _kmeans_torch(x: torch.Tensor, w: torch.Tensor, k: int, n_iter: int):
         labels = torch.argmin(_sq_dist(x, centers), dim=2)
         onehot = (labels[..., None] == slot).to(x.dtype) * w[..., None]
         counts = onehot.sum(dim=1)[..., None]
-        sums = torch.matmul(onehot.transpose(1, 2), x)
+        with ieee_f32_matmul():
+            sums = torch.matmul(onehot.transpose(1, 2), x)
         centers = torch.where(counts > 0, sums / torch.clamp(counts, min=1.0), centers)
     return torch.argmin(_sq_dist(x, centers), dim=2), centers
 

@@ -18,6 +18,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from oai_analysis_2_tpu_torch.core.device import ieee_f32_matmul
 from oai_analysis_2_tpu_torch.core.image import Image, physical_grid
 
 
@@ -181,10 +182,12 @@ def _separable_resize_weights(disp: DisplacementField, reference: Image):
 
 
 def _upsample_field_separable(field: torch.Tensor, wz, wy, wx) -> torch.Tensor:
-    """(Df,Hf,Wf,3) -> (Dr,Hr,Wr,3) trilinear resize as three f32 products."""
-    out = torch.einsum("zj,jklc->zklc", wz, field)
-    out = torch.einsum("yk,zklc->zylc", wy, out)
-    return torch.einsum("xl,zylc->zyxc", wx, out)
+    """(Df,Hf,Wf,3) -> (Dr,Hr,Wr,3) trilinear resize as three f32 products
+    (IEEE f32 whatever the caller's TF32 switches say)."""
+    with ieee_f32_matmul():
+        out = torch.einsum("zj,jklc->zklc", wz, field)
+        out = torch.einsum("yk,zklc->zylc", wy, out)
+        return torch.einsum("xl,zylc->zyxc", wx, out)
 
 
 def _warp_stacked(stacked, moving: Image, reference: Image,
