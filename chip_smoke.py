@@ -142,7 +142,14 @@ Phases, each fatal on failure (exit code 1, no result line):
    gradients, no wmma), the checkpoint reloaded bit-equal, one step under
    torch.profiler; (d) 5 segmentation steps on the production UNet (13
    sm90 + 1 cin1 forward, 12 sm90 + 1 sm90n data gradients a step, no
-   wmma), the loss falling;
+   wmma), the loss falling; (e) the w24 recipe from scratch through
+   `tools/port_train_w24_cycles.run_cycles`, cut to 3 warm-restart cycles
+   of 10 steps on a pool of 8 (peak lr 3e-4, 1.5e-4, 8e-5; zero heads):
+   the tool's gates (finite losses, (c)'s launches a step, a `.best` that
+   never rises, each cycle resumed from the checkpoint on disk, every
+   checkpoint reloaded bit-equal and giving its sidecar's eval), then
+   `validate_registration --network 0 --weights` on the result, which
+   must finish with a finite error;
 12. examples: the port's modules of the JAX package's example scripts,
    as a user runs them: (a) `validate_registration.main` at its default
    80x192x192 phantom with `--network 0`, `--network 20`, in instance
@@ -1639,6 +1646,7 @@ TRAIN_TILE = (2, 32, 128, 128)  # the segmentation trainer's batch: 2 patches of
 TRAIN_SMALL_LR = 1e-4  # (b): Adam's step, small so that sign-noise moves stay small
 TRAIN_STEPS = 20  # (c)
 SEG_TRAIN_STEPS = 5  # (d)
+RECIPE_CUT = dict(steps_per_cycle=10, pool=8)  # (e): the uncut recipe is the tool's own run
 
 
 def conv_train_case(torch, cuda_conv, name, shape, cin, cout, dtype, reps, dgrad=True):
@@ -1991,6 +1999,27 @@ def gradicon_training(torch, cuda_conv, tmp_root) -> dict:
     }
 
 
+def recipe_cycles(root) -> dict:
+    """Phase 11 (e): the w24 recipe from scratch through
+    `tools/port_train_w24_cycles.run_cycles` at `RECIPE_CUT` (its gates
+    raise), then `validate_registration --network 0` on the result; adds
+    the conv launches of the three cycles by route and direction."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools", "port_train_w24_cycles.py")
+    spec = importlib.util.spec_from_file_location("port_train_w24_cycles", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    report = tool.run_cycles(root / "gradicon.npz", device="cuda", validators=(0,), shipped=False, **RECIPE_CUT)
+    launches = {}
+    for c in report["cycles"]:
+        for k, v in c["launches_per_step"].items():
+            launches[k] = launches.get(k, 0) + int(v * c["steps"])
+        launches["fwd_f32"] = launches.get("fwd_f32", 0) + c["eval_f32_launches"]
+    report["launches"] = launches
+    return report
+
+
 def profile_train_step(torch, fn) -> dict:
     """One training step under torch.profiler: wall, the device's busy time
     and device ms by kernel family: the conv kernels (wmma, sm90, sm90n, cin1, cinsmall, f32;
@@ -2075,8 +2104,9 @@ def segmentation_training(torch, cuda_conv, pipe, knee) -> dict:
 def training(torch, cuda_conv, pipe, knee, kernels) -> dict:
     """Phase 11: (a) the conv kernels under autograd at the trainers'
     shapes, (b) small steps card against CPU, (c) full-width GradICON
-    training, (d) full-width segmentation training. Appends the training
-    rows to `kernels` with their launches from (b)-(d)."""
+    training, (d) full-width segmentation training, (e) the w24 recipe's
+    warm-restart cycles from scratch, cut. Appends the training rows to
+    `kernels` with their launches from (b)-(d)."""
     from pathlib import Path
 
     from oai_analysis_2_tpu_torch.models.gradicon import _stage_spec
@@ -2105,6 +2135,9 @@ def training(torch, cuda_conv, pipe, knee, kernels) -> dict:
     t0 = time.perf_counter()
     report["d"] = segmentation_training(torch, cuda_conv, pipe, knee)
     report["d_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report["e"] = recipe_cycles(root.parent / "recipe_smoke")
+    report["e_s"] = time.perf_counter() - t0
     # launches: (c)'s 20 steps, (b)'s GradICON card steps, (d)'s 5 steps
     counts = {"gradicon": {k: v * TRAIN_STEPS for k, v in report["c"]["launches_per_step"].items()},
               "f32": report["b"]["gradicon"]["launches"],
@@ -3265,7 +3298,8 @@ def main() -> int:
     train = training(torch, cuda_conv, pipe, knee, kernels)
     train["phase_s"] = time.perf_counter() - t0
     per_step = {"train_gradicon_step": train["c"]["launches_per_step"],
-                "train_segment_step": train["d"]["launches_per_step"]}
+                "train_segment_step": train["d"]["launches_per_step"],
+                "train_recipe_cut": train["e"]["launches"]}
     for k in kernels[:n_before]:
         route = k["name"].split(":")[0][len("conv3d_"):]
         for path, counts in per_step.items():
@@ -3282,6 +3316,12 @@ def main() -> int:
                if "wgrad_ms" in k else "")
             + (f", was {k['was_ms']:.3f} ms" if "was_ms" in k else "")
             + (f", loads alone {k['loads_ms']:.3f} ms" if "loads_ms" in k else ""))
+    for c in train["e"]["cycles"]:
+        log(f"phase training: (e) cycle {c['cycle']} (lr {c['lr']}): eval {c['eval']}, best {c['best_after']:.6f}, "
+            f"checkpoint {'written' if c['checkpoint_written'] else 'not written'}, step median "
+            f"{c['step_s']['median_s']:.4f} s, wall {c['wall_s']:.1f} s")
+    log(f"phase training: (e) validate_registration --network 0 on the recipe's weights: "
+        f"{json.dumps(train['e']['validators'])} ({train['e_s']:.1f} s in all)")
     log(f"phase training ({train['phase_s']:.1f} s, card {card}): {json.dumps(train)}")
 
     # ---- 12. the example scripts ----------------------------------------------------

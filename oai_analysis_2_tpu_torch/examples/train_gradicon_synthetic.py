@@ -109,7 +109,9 @@ def _ramp(spec: str, frac: float) -> float:
 def main(argv=None, device=None) -> dict:
     """Train as the module's docstring says; returns a summary (per-step
     seconds with the card synchronized at each step end, the losses, the
-    eval errors by step, the best error and the checkpoint path)."""
+    eval errors by step, the best error, the checkpoint path, the resumed
+    path, and as stage-params lists the weights training started from and
+    those the last checkpoint written holds)."""
     argv = sys.argv[1:] if argv is None else list(argv)
     steps = int(argv[0]) if len(argv) > 0 else 3000
     batch = int(argv[1]) if len(argv) > 1 else 2
@@ -126,6 +128,7 @@ def main(argv=None, device=None) -> dict:
     if resume:
         model.load_params(load_gradicon_params(resume))
         print(f"resumed from {resume}", flush=True)
+    start_params = model.params_list()
 
     sup_w = float(os.environ.get("GRADICON_SUP_W", "0.3"))
     sim_w = float(os.environ.get("GRADICON_SIM_W", "1.0"))
@@ -168,7 +171,8 @@ def main(argv=None, device=None) -> dict:
     # never overwrite a better checkpoint of an earlier cycle (warm restarts)
     best = float(os.environ.get("GRADICON_BEST", "inf"))
     out_path.parent.mkdir(parents=True, exist_ok=True)
-    summary = {"step_seconds": [], "losses": [], "eval": {}, "checkpoint": None}
+    summary = {"step_seconds": [], "losses": [], "eval": {}, "checkpoint": None, "resumed_from": resume,
+               "start_params": start_params, "checkpoint_params": None}
     t0 = time.time()
     for i in range(steps):
         t_step = time.perf_counter()
@@ -185,9 +189,10 @@ def main(argv=None, device=None) -> dict:
             print(f"step {i}: eval recovery error {e_mask:.3f} vox (anatomy) {e_all:.3f} vox (all)", flush=True)
             if e_mask < best:
                 best = e_mask
+                saved = model.params_list()
                 save_checkpoint(
                     {
-                        "params": {f"stage{k}": p for k, p in enumerate(model.params_list())},
+                        "params": {f"stage{k}": p for k, p in enumerate(saved)},
                         "epoch": i,
                         "stage_width": width,
                         "grid_shape": list(shape),
@@ -201,6 +206,7 @@ def main(argv=None, device=None) -> dict:
                 # tracker (GRADICON_BEST=$(cat out.best))
                 (out_path.parent / (out_path.name + ".best")).write_text(f"{best:.6f}")
                 summary["checkpoint"] = str(out_path)
+                summary["checkpoint_params"] = saved
                 print(f"  saved {out_path} (best {best:.3f} vox)", flush=True)
     print(f"done in {time.time() - t0:.0f}s; best eval {best:.3f} vox")
     summary["best"] = best

@@ -129,7 +129,11 @@ def ulp_perturb(vol: np.ndarray, share: float = 0.01, seed: int = 0) -> np.ndarr
 def main(argv=None, device=None, perturb=None) -> dict:
     """Run as the module's docstring says; returns the printed numbers
     (seconds with the card synchronized, the image MSE before and after,
-    the field error's mean, median and p95 in mm) and the mode.
+    the field error's mean, median and p95 in mm) and the mode, plus the
+    maps' inverse-consistency error and folded-Jacobian fractions on the
+    registration grid (`register_pair`'s `quality_out`: `ice_mean_vox`,
+    `ice_max_vox`, `ice_mean_mm`, `ice_max_mm`, `fold_fraction_ab`,
+    `fold_fraction_ba`).
 
     perturb: None, or (seed, share) to move a share of the phantom's voxels
     by one ulp each (`ulp_perturb`) before the run; the anatomy mask stays
@@ -150,6 +154,7 @@ def main(argv=None, device=None, perturb=None) -> dict:
     # moving(x) = fixed(x + gt(x)): the pullback through the known field
     moving = resample_image(fixed, fixed, displacement=gt_field)
 
+    quality = {}
     synchronize(dev)
     t0 = time.time()
     if a["use_network"]:
@@ -164,13 +169,13 @@ def main(argv=None, device=None, perturb=None) -> dict:
         phi_ab, _ = register_pair(
             fixed, moving, model=GradICON(cfg, device=dev), params=params, config=cfg,
             finetune_steps=a["finetune"], finetune_scales=a["ft_scales"], finetune_lr=a["ft_lr"],
-            gicon_grad=a["gicon_grad"], early_stop=a["early_stop"],
+            gicon_grad=a["gicon_grad"], early_stop=a["early_stop"], quality_out=quality,
         )
     else:
         cfg = GradICONConfig(grid_shape=a["net_grid"]) if a["net_grid"] else GradICONConfig()
         phi_ab, _ = register_pair(
             fixed, moving, config=cfg, instance_scales=a["inst_scales"], instance_steps=a["inst_steps"],
-            gicon_grad=a["gicon_grad"], early_stop=a["early_stop"],
+            gicon_grad=a["gicon_grad"], early_stop=a["early_stop"], quality_out=quality,
         )
     synchronize(dev)
     dt = time.time() - t0
@@ -204,6 +209,7 @@ def main(argv=None, device=None, perturb=None) -> dict:
         "mse_before": before, "mse_after": after, "mse_ratio": after / before,
         "err_mean_mm": float(err.mean()), "err_median_mm": float(np.median(err)),
         "err_p95_mm": float(np.percentile(err, 95)),
+        **{k: float(v) for k, v in quality.items()},
     }
 
 
