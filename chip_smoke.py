@@ -2237,15 +2237,25 @@ FULL_DEMO_JAX_CPU_80 = dict(fc_points=6228, fc_mean_thickness=0.390, tc_points=6
                             fc_coverage=0.349, tc_coverage=0.307, fc_mapped_mean_mm=0.721,
                             tc_mapped_mean_mm=0.170)
 # tolerances against those, relative but for the coverage (absolute). The
-# same tool's port run on the CPU gave: FC equal to the printed digits; TC
-# 6149 points (-0.05 %), mean 0.335 (+0.3 %), mapped mean 0.156 (-8.2 %).
-# The TC mapped mean is ill-conditioned on this phantom: 36 % of the knee's
-# TC inner points have a thickness under 0.05 mm and 68 % of the atlas's TC
-# points take one of them, so a few points of either mesh (the bf16 maps
-# round differently) move it by percents; the sizes and means take phase
-# 8's tolerances (0.5 %, 1 %) and the coverage phase 8 (c)'s (0.005)
+# TC mapped mean is ill-conditioned on this phantom: 36 % of the knee's TC
+# inner points have a thickness under 0.05 mm and 68 % of the atlas's TC
+# points take one of them, so 2 voxels of the warped TC map across 0.5
+# moved it from 0.170 to 0.154 mm. That gap was two faults of the port,
+# found by `tools/port_full_demo_handoff.py` (each port stage fed JAX's
+# output of the stage before, on the CPU): the percentile window's
+# position (hi 552.29260 against JAX's 552.21167) and the UNet head's bf16
+# rounding before its bias (maps off by up to 0.0078). Repaired, every
+# stage is within f32 rounding of JAX's (segment maps 3.0e-8, field 3.1e-5
+# mm, no voxel across 0.5), the port's CPU run prints JAX's numbers, and
+# the card gave TC 6152 points and 0.17024 mm (H100, 700 W). The sizes and
+# means take phase 8's tolerances (0.5 %, 1 %), the coverage phase 8 (c)'s
+# (0.005), both mapped means 3 %
 FULL_DEMO_TOL_80 = dict(fc_points=0.005, tc_points=0.005, fc_mean_thickness=0.01, tc_mean_thickness=0.01,
-                        fc_coverage=0.005, tc_coverage=0.005, fc_mapped_mean=0.03, tc_mapped_mean=0.12)
+                        fc_coverage=0.005, tc_coverage=0.005, fc_mapped_mean=0.03, tc_mapped_mean=0.03)
+# `jnp.percentile(knee, 0.1)` and `(knee, 99.9)` of the 80x192x192 phantom
+# before its window, on the CPU (JAX 0.9; `tools/port_full_demo_handoff.py`
+# prints them)
+FULL_DEMO_WINDOW_JAX_CPU_80 = [0.2456759363412857, 552.211669921875]
 # the full demo's launches a run: the knee and the atlas through the UNet
 # (14 bf16 convs a slab), the network's 60 f32 convs, 2 tissues x 2
 # distance directions
@@ -2372,10 +2382,19 @@ def example_full_demo(torch, cuda_conv, cuda_kernels) -> dict:
     from pathlib import Path
 
     from oai_analysis_2_tpu_torch.examples import full_demo
+    from oai_analysis_2_tpu_torch.ops.intensity import _percentiles
 
     root = Path(__file__).resolve().parent / "build" / "examples_smoke"
     out = {}
     for name, shape in (("full", None), ("shape80", "80,192,192")):
+        # the phantom's window ends on the card and from the port on the CPU
+        raw = torch.from_numpy(full_demo._phantom_knee(tuple(int(v) for v in (shape or "160,384,384").split(","))))
+        window = {"card": _percentiles(raw.cuda(), (0.1, 99.9)), "cpu": _percentiles(raw, (0.1, 99.9))}
+        print(f"full demo ({name}) window lo / hi: card {window['card']}, CPU port {window['cpu']}", flush=True)
+        if window["card"] != window["cpu"] or (shape and window["card"] != FULL_DEMO_WINDOW_JAX_CPU_80):
+            raise AssertionError(f"full demo ({name}): the card's percentile window {window['card']} is not the "
+                                 f"CPU port's {window['cpu']} (at 80x192x192, JAX's {FULL_DEMO_WINDOW_JAX_CPU_80})")
+        del raw
         if shape is None:
             os.environ.pop("OAI_DEMO_SHAPE", None)
         else:
@@ -2398,7 +2417,7 @@ def example_full_demo(torch, cuda_conv, cuda_kernels) -> dict:
                                  f"{FULL_DEMO_DISTANCE} distance")
         out[name] = {**{k: v for k, v in got.items() if k not in ("stages", "out_dir")},
                      "stage_seconds": {k: v["seconds"] for k, v in got["stages"].items()}, "wall_s": wall,
-                     "launches": launches}
+                     "launches": launches, "window_lo_hi": window}
     got, ref, tol = out["shape80"], FULL_DEMO_JAX_CPU_80, FULL_DEMO_TOL_80
     gaps = {}
     for t in ("fc", "tc"):

@@ -119,12 +119,18 @@ def main(argv=None, device=None) -> dict:
 
 def _phantom_setup(device):
     """The zero-download inputs: the offline facade (synthetic atlas,
-    threshold-weights segmenter) and a two-shell knee phantom from
-    `default_rng(7)` whose cartilage-like caps the threshold segmenter
-    maps, windowed to [0, 1]. `OAI_DEMO_SHAPE=D,H,W` sets the grid."""
+    threshold-weights segmenter) and `_phantom_knee`, windowed to [0, 1].
+    `OAI_DEMO_SHAPE=D,H,W` sets the grid."""
     shape = tuple(int(v) for v in os.environ.get("OAI_DEMO_SHAPE", "160,384,384").split(","))
     obj = AnalysisObject.offline(atlas_shape="phantom:{},{},{}".format(*shape), device=device)
+    # the pipeline takes a preprocessed image, as FullDemo feeds
+    # image_preprocessed.nii.gz
+    return obj, percentile_window(image_from_array(_phantom_knee(shape), spacing=(0.36, 0.36, 0.7), device=device))
 
+
+def _phantom_knee(shape) -> np.ndarray:
+    """A two-shell knee phantom from `default_rng(7)` whose cartilage-like
+    caps the threshold segmenter maps, before its window."""
     d, h, w = shape
     s = h / 384.0  # radii calibrated at the reference atlas grid
     z, y, x = np.meshgrid(*[np.arange(n, dtype=np.float32) for n in shape], indexing="ij")
@@ -140,10 +146,7 @@ def _phantom_setup(device):
         shell(47.5 * s, 52.5 * s, (d * 0.5, h * 0.55, w * 0.5)),
         shell(31.5 * s, 35.5 * s, (d * 0.5, h * 0.6, w * 0.5)),
     )
-    knee = (anatomy * 900.0 + rng.uniform(0.0, 250.0, shape)).astype(np.float32)
-    # the pipeline takes a preprocessed image, as FullDemo feeds
-    # image_preprocessed.nii.gz
-    return obj, percentile_window(image_from_array(knee, spacing=(0.36, 0.36, 0.7), device=device))
+    return (anatomy * 900.0 + rng.uniform(0.0, 250.0, shape)).astype(np.float32)
 
 
 def _atlas_inner_meshes(obj):

@@ -13,11 +13,12 @@ model it trains, and every serving forward runs under `torch.no_grad()`.
 Routing, as on the TPU's opt-in Pallas path but for every layer: each
 3x3x3 conv goes through the hand-written kernel (`ops.cuda_conv.conv3d`,
 bias + ReLU + cast fused); the k2s2 upconv and the 1x1x1 head are plain
-products (`torch.matmul`), which the JAX package leaves to XLA. A
-batch-norm spec (inference statistics, JAX `unet3d.py:242-279`) puts BN
-between a block's conv and its ReLU: its convs return the f32 accumulator
-plus bias (`relu=False, out_dtype=torch.float32`), BN and ReLU run in f32,
-then one cast to the compute dtype; the upconv gets BN before its ReLU too.
+f32 products (`torch.matmul`) of the compute-dtype operands, which the
+JAX package leaves to XLA. A batch-norm spec (inference statistics, JAX
+`unet3d.py:242-279`) puts BN between a block's conv and its ReLU: its
+convs return the f32 accumulator plus bias (`relu=False,
+out_dtype=torch.float32`), BN and ReLU run in f32, then one cast to the
+compute dtype; the upconv gets BN before its ReLU too.
 
 Training: `init(generator)` draws JAX's init (`unet3d.py:143-167`,
 `:365-406`); whenever grad is enabled and the input or a conv's leaves
@@ -30,7 +31,6 @@ statistics and also returns the updated running statistics (JAX
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
 from typing import Dict, Optional, Tuple, Union
@@ -219,32 +219,29 @@ def maxpool2x(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(n, d2, 2, h2, 2, w2, 2, c).amax(dim=(2, 4, 6))
 
 
-def _products(dtype: torch.dtype):
-    """The context for a plain product in `dtype`: IEEE f32 for f32 operands
-    (`core.device.ieee_f32_matmul`), none for bf16."""
-    return ieee_f32_matmul() if dtype == torch.float32 else contextlib.nullcontext()
-
-
 def _pointwise(x: torch.Tensor, blk: _Block) -> torch.Tensor:
-    """1x1x1 conv as one product in the compute dtype (the JAX path's bf16
-    conv output is rounded to bf16 before the f32 bias)."""
-    k = blk.kernel.to(x.dtype)
-    with _products(x.dtype):
-        y = (x @ k[0, 0, 0]).to(torch.float32)
+    """1x1x1 conv as one f32 product of the compute-dtype operands, then
+    the f32 bias: XLA's compiled JAX program keeps a bf16 conv's f32
+    accumulator through its `astype(float32)`, so the product is not
+    rounded to bf16 before the bias."""
+    k = blk.kernel.to(x.dtype).to(torch.float32)
+    with ieee_f32_matmul():
+        y = x.to(torch.float32) @ k[0, 0, 0]
     if blk.bias is not None:
         y = y + blk.bias
     return y
 
 
 def upconv2x(x: torch.Tensor, blk: _Block) -> torch.Tensor:
-    """k2/s2 transposed conv as one product (N*D*H*W, Cin) @ (Cin, 8*Cout)
-    with the JAX package's transpose order (unet3d.py:214-227)."""
-    w = blk.kernel.to(x.dtype)
+    """k2/s2 transposed conv as one f32 product (N*D*H*W, Cin) @ (Cin,
+    8*Cout) of the compute-dtype operands, as `_pointwise`, with the JAX
+    package's transpose order (unet3d.py:214-227)."""
+    w = blk.kernel.to(x.dtype).to(torch.float32)
     n, d, h, wd, cin = x.shape
     cout = w.shape[-1]
     wm = w.permute(3, 0, 1, 2, 4).reshape(cin, 8 * cout)
-    with _products(x.dtype):
-        y = (x @ wm).to(torch.float32)
+    with ieee_f32_matmul():
+        y = x.to(torch.float32) @ wm
     y = y.reshape(n, d, h, wd, 2, 2, 2, cout)
     y = y.permute(0, 1, 4, 2, 5, 3, 6, 7).reshape(n, 2 * d, 2 * h, 2 * wd, cout)
     if blk.bias is not None:

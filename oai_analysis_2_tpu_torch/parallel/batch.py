@@ -39,7 +39,7 @@ from oai_analysis_2_tpu_torch.engine.registration import ICON_Registration, _net
 from oai_analysis_2_tpu_torch.engine.segmenter import Segmenter3DInPatchClassWise
 from oai_analysis_2_tpu_torch.mesh.processing import get_thickness_meshes
 from oai_analysis_2_tpu_torch.models.gradicon import GradICONConfig
-from oai_analysis_2_tpu_torch.ops.intensity import percentile_window
+from oai_analysis_2_tpu_torch.ops.intensity import _percentiles
 from oai_analysis_2_tpu_torch.ops.resample import (
     DisplacementField,
     _separable_resize_weights,
@@ -49,6 +49,17 @@ from oai_analysis_2_tpu_torch.ops.resample import (
 )
 from oai_analysis_2_tpu_torch.parallel.sharding import gather_slots, mesh_device
 from oai_analysis_2_tpu_torch.utils.profiling import StageTimer
+
+
+def _window_knee(knee: torch.Tensor) -> torch.Tensor:
+    """The batch's percentile window (JAX `parallel/batch.py:248-252`):
+    `clip((knee - lo) / max(hi - lo, 1e-20), 0, 1)` with the 0.1 / 99.9
+    percentiles as JAX's batch program folds them (`_percentiles(...,
+    folded=True)`), which can differ from `percentile_window`'s at a
+    knee's size, as JAX's two windows differ."""
+    lo, hi = (torch.tensor(v, dtype=torch.float32, device=knee.device)
+              for v in _percentiles(knee, (0.1, 99.9), folded=True))
+    return torch.clamp((knee - lo) / torch.clamp(hi - lo, min=1e-20), 0.0, 1.0)
 
 
 class BatchKneePipeline:
@@ -233,7 +244,7 @@ class BatchKneePipeline:
             template = own[0].to(self.device)
             # knees already on the device are stacked there, not through the host
             knees = [template.with_data(im.data.to(device=self.device, dtype=torch.float32)) for im in own]
-            pre = torch.stack([(percentile_window(k) if self.normalize else k).data for k in knees])
+            pre = torch.stack([_window_knee(k.data) if self.normalize else k.data for k in knees])
             maps = self._seg_fn(template.shape, len(own))(pre)
             warped, disp = self._register_warp(template, pre, maps)
         if self.mesh is None:

@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from oai_analysis_2_tpu.core import image as JI
@@ -17,6 +18,7 @@ from oai_analysis_2_tpu.ops.tiling import Partition as JPartition
 from oai_analysis_2_tpu.utils.checkpoint import load_checkpoint as jload
 from oai_analysis_2_tpu_torch.core import image as TI
 from oai_analysis_2_tpu_torch.engine.segmenter import Segmenter3DInPatchClassWise as TSeg
+from oai_analysis_2_tpu_torch.examples.full_demo import _phantom_knee
 from oai_analysis_2_tpu_torch.models.unet3d import NETWORK_SPECS, make_threshold_params
 from oai_analysis_2_tpu_torch.ops import intensity as TN
 from oai_analysis_2_tpu_torch.ops import resample as TRS
@@ -46,19 +48,36 @@ def test_physical_maps_match():
 
 @pytest.mark.parametrize("percs", [(0.1, 99.9), (0.0, 100.0), (37.5, 62.5)])
 def test_percentile_window_matches(percs):
-    """XLA folds `q / 100 * (n - 1)` into one product with another rounding,
-    so the interpolation position can differ by one f32 ulp of ~n; across
-    the widest gap of these 4743 gamma samples that moves a window end by
-    under 1e-4 of the window (hence atol 1e-4 on the [0, 1] output)."""
+    """lo, hi and the window bit for bit: the port forms the interpolation
+    position and weights in float32 as XLA's `jnp.percentile` does."""
     data = np.random.default_rng(1).gamma(2.0, 100.0, (9, 31, 17)).astype(np.float32)
     jimg, timg = _images(data)
     want = np.asarray(JN.percentile_window(jimg, *percs, 0.0, 1.0).data)
     got = TN.percentile_window(timg, *percs, 0.0, 1.0).data.numpy()
-    np.testing.assert_allclose(got, want, atol=1e-4)
+    np.testing.assert_array_equal(got, want)
     # the order statistics themselves are jnp.percentile's
     lo, hi = TN._percentiles(torch.tensor(data), percs)
-    np.testing.assert_allclose([float(lo), float(hi)], [float(jnp.percentile(jnp.asarray(data), p)) for p in percs],
-                               rtol=1e-4)
+    np.testing.assert_array_equal(np.float32([lo, hi]), [np.float32(jnp.percentile(jnp.asarray(data), p))
+                                                          for p in percs])
+
+
+@pytest.fixture(scope="module")
+def phantom_knee():
+    """The full demo's phantom knee at 80x192x192, before its window."""
+    return _phantom_knee((80, 192, 192))
+
+
+def test_percentile_window_matches_at_a_knee_size(phantom_knee):
+    """At the phantom's 2,949,120 voxels the float32 position of the 99.9th
+    percentile rounds: XLA's `p * ((n - 1) * 0.01)` gives 2,946,169.75,
+    `(p / 100) * (n - 1)` 2,946,170.0, and hi moves from 552.21167 to
+    552.29260 (the window by 1.5e-4). lo, hi and the window bit for bit."""
+    jimg, timg = _images(phantom_knee, spacing=(0.36, 0.36, 0.7))
+    want = [np.float32(jnp.percentile(jnp.asarray(phantom_knee), p)) for p in (0.1, 99.9)]
+    assert want[1] == np.float32(552.21167)
+    np.testing.assert_array_equal(np.float32(TN._percentiles(torch.tensor(phantom_knee), (0.1, 99.9))), want)
+    np.testing.assert_array_equal(TN.percentile_window(timg).data.numpy(),
+                                  np.asarray(JN.percentile_window(jimg).data))
 
 
 def _field(shape, rng, scale=1.5):
@@ -130,6 +149,29 @@ def test_checkpoint_round_trip(seg_files):
     ours, theirs = load_checkpoint(seg_files / "seg.npz"), jload(seg_files / "seg.npz")
     assert ours["epoch"] == theirs["epoch"] == 3
     np.testing.assert_array_equal(ours["params"]["dec0a"]["kernel"], np.asarray(theirs["params"]["dec0a"]["kernel"]))
+
+
+@pytest.mark.parametrize("name", ["UNet", "UNet_light4"])
+def test_threshold_unet_logits_match_bf16(name):
+    """The threshold-weights UNet in bf16 (the phantom demo's segmenter)
+    gives JAX's logits bit for bit: XLA keeps the bf16 head's f32
+    accumulator through `astype(float32)`, so the port's 1x1x1 head and
+    upconv take f32 products of the bf16 operands and do not round to bf16
+    before the bias (which moved logits by up to 0.0625)."""
+    from oai_analysis_2_tpu.models import unet3d as JU
+    from oai_analysis_2_tpu_torch.models import unet3d as TU
+    from oai_analysis_2_tpu_torch.utils.checkpoint import carry_params
+
+    jm = JU.UNet3D(JU.NETWORK_SPECS[name].replace(bias=True), compute_dtype=jnp.bfloat16)
+    params = JU.make_threshold_params(jm)
+    x = np.random.default_rng(0).uniform(0, 1, (1, 8, 32, 32, 1)).astype(np.float32)
+    want = np.asarray(jax.jit(jm.apply)(params, jnp.asarray(x)))
+    tm = TU.UNet3D(TU.NETWORK_SPECS[name].replace(bias=True), compute_dtype=torch.bfloat16, device="cpu")
+    carry_params(tm, params)
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x)).numpy()
+    assert np.abs(want).max() > 1.0
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("dtype,atol,ips", [("float32", 1e-4, None), ("bfloat16", 2e-2, None),

@@ -106,9 +106,9 @@ def counting(monkeypatch, module) -> list:
 
 
 def test_f32_products_go_through_it(monkeypatch):
-    """The warp's upsampling, the f32 UNet's pointwise and upconv products
-    and the device k-means's one-hot sums each enter the context (a bf16
-    product does not), with TF32 on outside."""
+    """The warp's upsampling, the UNet's pointwise and upconv products (f32
+    products in either compute dtype) and the device k-means's one-hot sums
+    each enter the context, with TF32 on outside."""
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.set_float32_matmul_precision("high")
     rng = np.random.default_rng(0)
@@ -130,7 +130,7 @@ def test_f32_products_go_through_it(monkeypatch):
     assert len(seen) == 2 and all(ieee_inside(s) for s in seen)
     unet3d._pointwise(x.to(torch.bfloat16), blk)
     unet3d.upconv2x(x.to(torch.bfloat16), up)
-    assert len(seen) == 2
+    assert len(seen) == 4 and all(ieee_inside(s) for s in seen)
 
     seen = counting(monkeypatch, clustering)
     pts = rng.normal(size=(40, 3)).astype(np.float32)

@@ -1,20 +1,27 @@
 """The port's phantom full demo (`oai_analysis_2_tpu_torch/examples/
-full_demo.py`) on the CPU, port only: the JAX script takes minutes at any
+full_demo.py`) on the CPU, the whole demo port only: the JAX script takes minutes at any
 size where its phantom works (`tools/port_full_demo_parity.py` holds the
 two packages there, and the stage functions are held against the JAX
 package by the other `test_torch_*` files). Its `_phantom_setup` is
 replaced by a 32x64x64 object (a threshold `UNet_light4` in place of the
 offline production UNet) whose atlas and knee have shells thick enough to
 survive the 3000-cell filter, and its output is held against the same
-stage functions called directly.
+stage functions called directly. The stages after the warp are also held
+against the JAX package's on a map that JAX warped.
 """
 
 import json
 import warnings
 
+import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
+from oai_analysis_2_tpu.core.image import image_from_array as jimage
+from oai_analysis_2_tpu.mesh import processing as JP
+from oai_analysis_2_tpu.ops.resample import DisplacementField as JField
+from oai_analysis_2_tpu.ops.resample import resample_image as jwarp
 from oai_analysis_2_tpu_torch.analysis_object import AnalysisObject
 from oai_analysis_2_tpu_torch.core.image import image_from_array
 from oai_analysis_2_tpu_torch.core.nifti import read_nifti
@@ -126,3 +133,42 @@ def test_full_demo_phantom_matches_its_stages(tmp_path, monkeypatch, capsys):
     assert set(got["stages"]) == {"segment", "register", "warp", "thickness", "atlas_map", "project"}
     assert got["fc_points"] == fc_inner.n_points and got["tc_points"] == tc_inner.n_points
     assert 0.2 < got["fc_median_thickness"] < 10.0 and got["fc_coverage"] > 0 and got["tc_coverage"] > 0
+
+
+@pytest.mark.parametrize("tissue", ["FC", "TC"])
+def test_stages_after_the_warp_match_jax(tissue):
+    """The hand-off after the warp at 32x64x64: a map warped by the JAX
+    package (the knee's shell onto the atlas grid by a smooth field) through
+    the port's `get_thickness_mesh` -> `map_attributes` ->
+    `project_thickness` -> `rasterize_thickness`, against the JAX chain on
+    the same map and the JAX atlas mesh; then the port's raster stages on
+    the JAX meshes, which must give the JAX raster exactly."""
+    radii, knee_c, atlas_c = {"FC": ((18.0, 21.5), (16, 35, 32), (16, 34, 31)),
+                              "TC": ((10.5, 14.0), (16, 40, 32), (16, 39, 31))}[tissue]
+    atlas = jimage(_shell(SHAPE, *radii, atlas_c), spacing=SPACING)
+    knee = jimage(_shell(SHAPE, *radii, knee_c), spacing=SPACING)
+    g = np.stack(np.meshgrid(*(np.linspace(0.0, np.pi, n, dtype=np.float32) for n in (8, 16, 16)),
+                             indexing="ij"), -1)
+    field = (np.float32([0.25, -0.3, 0.2]) + 0.3 * np.sin(g[..., ::-1] * np.float32([1.0, 2.0, 1.5]))).astype(np.float32)
+    spacing = np.float32(SPACING) * (np.float32(SHAPE[::-1]) - 1) / (np.float32([16, 16, 8]) - 1)
+    phi = JField(jnp.asarray(field), jnp.zeros(3, jnp.float32), jnp.asarray(spacing), jnp.eye(3, dtype=jnp.float32))
+    warped = jwarp(knee, atlas, displacement=phi)
+
+    j_inner, _ = JP.get_thickness_mesh(warped, mesh_type=tissue)
+    j_atlas, _ = JP.split_mesh(JP.get_mesh(atlas), mesh_type=tissue)
+    want = JP.rasterize_thickness(*JP.project_thickness(JP.map_attributes(j_inner, j_atlas), mesh_type=tissue))
+
+    t_warped = image_from_array(np.array(warped.data), spacing=SPACING, device="cpu")
+    inner, _ = get_thickness_mesh(t_warped, tissue)
+    assert inner.n_points == j_inner.n_points > 500
+    np.testing.assert_allclose(inner.vertices, j_inner.vertices, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(inner.point_data, j_inner.point_data, atol=1e-3, rtol=0)
+    t_atlas = Mesh(j_atlas.vertices, j_atlas.faces)
+    got = rasterize_thickness(*project_thickness(map_attributes(inner, t_atlas, device="cpu"), tissue))
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_allclose(got[0], want[0], atol=1e-3, rtol=0)
+    # the raster stages alone, on the JAX meshes: exact
+    exact = rasterize_thickness(*project_thickness(
+        map_attributes(Mesh(j_inner.vertices, j_inner.faces, j_inner.point_data), t_atlas, device="cpu"), tissue))
+    for a, b in zip(exact, want):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
