@@ -169,8 +169,13 @@ Phases, each fatal on failure (exit code 1, no result line):
    package's CPU numbers: every output file, finite maps, non-empty
    inner meshes, an FC median of 0.2-10 mm, covered rasters, 13 sm90
    launches per cin1, none on wmma, sm90n or cinsmall, 60 f32 and 4
-   distance; (d) on phase 8's release tree, the segmentation demo's voxel
-   counts equal to the CLI route's on the same windowed knee, the
+   distance; then four more times at 80x192x192 with the knee moved by
+   one f32 ulp at 1 % of its voxels (`tools/port_full_demo_spread.py`'s
+   `port_knee_perturbed`, seeds 1-4, the perturbations of its CPU runs),
+   each run held as the unperturbed one, and the card's band of the
+   mapped means printed beside both packages' CPU bands
+   (`FULL_DEMO_CPU_BAND`); (d) on phase 8's release tree, the
+   segmentation demo's voxel counts equal to the CLI route's on the same windowed knee, the
    thickness demo's inner mesh within phase 8's tolerances of
    `get_thickness_mesh` on the same map, and the cohort demo over two
    copies of the knee: 2 done, no failed or retried record; (e) instance
@@ -1999,18 +2004,24 @@ def gradicon_training(torch, cuda_conv, tmp_root) -> dict:
     }
 
 
+def load_tool(name: str):
+    """The module `tools/<name>.py` of this checkout."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
+
+
 def recipe_cycles(root) -> dict:
     """Phase 11 (e): the w24 recipe from scratch through
     `tools/port_train_w24_cycles.run_cycles` at `RECIPE_CUT` (its gates
     raise), then `validate_registration --network 0` on the result; adds
     the conv launches of the three cycles by route and direction."""
-    import importlib.util
-
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools", "port_train_w24_cycles.py")
-    spec = importlib.util.spec_from_file_location("port_train_w24_cycles", path)
-    tool = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(tool)
-    report = tool.run_cycles(root / "gradicon.npz", device="cuda", validators=(0,), shipped=False, **RECIPE_CUT)
+    report = load_tool("port_train_w24_cycles").run_cycles(root / "gradicon.npz", device="cuda", validators=(0,),
+                                                           shipped=False, **RECIPE_CUT)
     launches = {}
     for c in report["cycles"]:
         for k, v in c["launches_per_step"].items():
@@ -2249,9 +2260,28 @@ FULL_DEMO_JAX_CPU_80 = dict(fc_points=6228, fc_mean_thickness=0.390, tc_points=6
 # mm, no voxel across 0.5), the port's CPU run prints JAX's numbers, and
 # the card gave TC 6152 points and 0.17024 mm (H100, 700 W). The sizes and
 # means take phase 8's tolerances (0.5 %, 1 %), the coverage phase 8 (c)'s
-# (0.005), both mapped means 3 %
+# (0.005), both mapped means 3 %. Rounding alone uses little of that: with
+# the knee moved by one ulp at 1 % of its voxels (FULL_DEMO_CPU_BAND and
+# the card's runs, an H100 80GB HBM3 at 700 W, 0.17024140-0.17024156 mm)
+# no warped voxel crossed 0.5, and every run of the three bands lies
+# 0.141-0.142 % above the printed 0.170 (FC 0.004 % above 0.721), so the
+# widest band, JAX's, leaves 2.86 % of the TC gate
 FULL_DEMO_TOL_80 = dict(fc_points=0.005, tc_points=0.005, fc_mean_thickness=0.01, tc_mean_thickness=0.01,
                         fc_coverage=0.005, tc_coverage=0.005, fc_mapped_mean=0.03, tc_mapped_mean=0.03)
+#   JAX_PLATFORMS=cpu python tools/port_full_demo_spread.py --runs 9
+# (the 80x192x192 full demo in both packages, 9 runs each: the knee as it
+# is, then moved by one f32 ulp at 1 % of its voxels at seeds 1-8): each
+# package's band of the mean mapped thickness (mm)
+FULL_DEMO_CPU_BAND = {
+    "jax": dict(tc_mapped_mean_mm=dict(n=9, min=0.1702393740415573, max=0.17024163901805878,
+                                       mean=0.17023992207315233, std=9.678524377280306e-07),
+                fc_mapped_mean_mm=dict(n=9, min=0.7210277318954468, max=0.7210291624069214,
+                                       mean=0.7210287517971463, std=5.514995607448423e-07)),
+    "port": dict(tc_mapped_mean_mm=dict(n=9, min=0.17024151980876923, max=0.170241579413414,
+                                        mean=0.17024154629972246, std=1.9396964897480248e-08),
+                 fc_mapped_mean_mm=dict(n=9, min=0.7210279703140259, max=0.7210281491279602,
+                                        mean=0.7210280895233154, std=7.300048299977713e-08)),
+}
 # `jnp.percentile(knee, 0.1)` and `(knee, 99.9)` of the 80x192x192 phantom
 # before its window, on the CPU (JAX 0.9; `tools/port_full_demo_handoff.py`
 # prints them)
@@ -2375,10 +2405,85 @@ def check_full_demo_outputs(torch, got, out_dir, what) -> None:
     check_finite(what, got)
 
 
+def run_full_demo(torch, cuda_conv, cuda_kernels, out_dir, shape, what) -> dict:
+    """One `full_demo.main(["phantom", out_dir])` at `OAI_DEMO_SHAPE=shape`
+    (None: the default grid): its printed numbers, stage seconds, wall
+    seconds and launches; its files, maps and meshes checked, and 13 sm90
+    launches per cin1, 60 f32 and 4 distance."""
+    from oai_analysis_2_tpu_torch.examples import full_demo
+
+    if shape is None:
+        os.environ.pop("OAI_DEMO_SHAPE", None)
+    else:
+        os.environ["OAI_DEMO_SHAPE"] = shape
+    reset_launches(cuda_conv, cuda_kernels)
+    t0 = time.perf_counter()
+    try:
+        got = full_demo.main(["phantom", str(out_dir)])
+    finally:
+        os.environ.pop("OAI_DEMO_SHAPE", None)
+    wall = time.perf_counter() - t0
+    launches = read_launches(cuda_conv, cuda_kernels)
+    check_full_demo_outputs(torch, got, out_dir, what)
+    check_bf16_routes(launches, what)
+    if launches["conv3d_cin1"] <= 0 or launches["conv3d_f32"] != FULL_DEMO_F32 \
+            or launches["point_triangle"] != FULL_DEMO_DISTANCE:
+        raise AssertionError(f"{what}: launches {launches}, want cin1 > 0, {FULL_DEMO_F32} f32 and "
+                             f"{FULL_DEMO_DISTANCE} distance")
+    return {**{k: v for k, v in got.items() if k not in ("stages", "out_dir")},
+            "stage_seconds": {k: v["seconds"] for k, v in got["stages"].items()}, "wall_s": wall,
+            "launches": launches}
+
+
+def full_demo_gaps(got, what) -> dict:
+    """An 80x192x192 run's gaps to the JAX package's CPU numbers, fatal
+    beyond `FULL_DEMO_TOL_80`."""
+    ref, tol = FULL_DEMO_JAX_CPU_80, FULL_DEMO_TOL_80
+    gaps = {}
+    for t in ("fc", "tc"):
+        gaps[f"{t}_points"] = (got[f"{t}_points"] - ref[f"{t}_points"]) / ref[f"{t}_points"]
+        gaps[f"{t}_mean_thickness"] = (got[f"{t}_mean_thickness"] - ref[f"{t}_mean_thickness"]) / \
+            ref[f"{t}_mean_thickness"]
+        gaps[f"{t}_coverage"] = got[f"{t}_coverage"] - ref[f"{t}_coverage"]
+        gaps[f"{t}_mapped_mean"] = (got[f"{t}_mapped_mean_mm"] - ref[f"{t}_mapped_mean_mm"]) / \
+            ref[f"{t}_mapped_mean_mm"]
+    bad = {k: v for k, v in gaps.items() if abs(v) > tol[k]}
+    if bad:
+        raise AssertionError(f"{what}: {got} against the JAX package's CPU {ref}: gaps {bad} beyond {tol}")
+    return gaps
+
+
+def full_demo_spread(torch, cuda_conv, cuda_kernels, root, unperturbed) -> dict:
+    """Phase 12 (c), continued: the 80x192x192 knee moved by one ulp at 1 %
+    of its voxels at the seeds of `SPREAD_SEEDS` (the perturbation of
+    `tools/port_full_demo_spread.py`'s CPU runs), each run as
+    `run_full_demo` checks it and within `FULL_DEMO_TOL_80` of the JAX
+    package's CPU numbers; the card's band of these runs and `unperturbed`
+    beside both packages' CPU bands (`FULL_DEMO_CPU_BAND`)."""
+    tool = load_tool("port_full_demo_spread")
+    runs = [{"seed": 0, **{k: unperturbed[k] for k in tool.NUMBERS}, "wall_s": unperturbed["wall_s"]}]
+    for seed in SPREAD_SEEDS:
+        what = f"full demo at 80x192x192, ulp seed {seed}"
+        with tool.port_knee_perturbed((seed, SPREAD_SHARE)) as seen:
+            got = run_full_demo(torch, cuda_conv, cuda_kernels, root / f"shape80_seed{seed}", "80,192,192", what)
+        if seen["knees"] != 1:
+            raise AssertionError(f"{what}: {seen['knees']} knees made, want 1")
+        runs.append({"seed": seed, **{k: got[k] for k in tool.NUMBERS}, "wall_s": got["wall_s"],
+                     "jax_cpu_gaps": full_demo_gaps(got, what), "launches": got["launches"]})
+        print(f"{what}: " + ", ".join(f"{k} {got[k]!r}" for k in tool.NUMBERS) + f", {got['wall_s']:.2f} s",
+              flush=True)
+    band = {k: spread_band([r[k] for r in runs]) for k in ("fc_mapped_mean_mm", "tc_mapped_mean_mm")}
+    inside = {k: all(min(b[k]["min"] for b in FULL_DEMO_CPU_BAND.values()) <= r[k]
+                     <= max(b[k]["max"] for b in FULL_DEMO_CPU_BAND.values()) for r in runs) for k in band}
+    print(f"full demo spread at 80x192x192 on the card ({len(runs)} runs): {json.dumps(band)}; the CPU bands "
+          f"{json.dumps(FULL_DEMO_CPU_BAND)}; every card run inside their span: {inside}", flush=True)
+    return {"runs": runs, "band": band, "cpu_band": FULL_DEMO_CPU_BAND, "inside_cpu_span": inside}
+
+
 def example_full_demo(torch, cuda_conv, cuda_kernels) -> dict:
     """Phase 12 (c): `full_demo.main(["phantom", dir])` at the default
     160x384x384, then at `OAI_DEMO_SHAPE=80,192,192` against the JAX
-    package's CPU numbers there."""
+    package's CPU numbers there, then `full_demo_spread`."""
     from pathlib import Path
 
     from oai_analysis_2_tpu_torch.examples import full_demo
@@ -2395,43 +2500,10 @@ def example_full_demo(torch, cuda_conv, cuda_kernels) -> dict:
             raise AssertionError(f"full demo ({name}): the card's percentile window {window['card']} is not the "
                                  f"CPU port's {window['cpu']} (at 80x192x192, JAX's {FULL_DEMO_WINDOW_JAX_CPU_80})")
         del raw
-        if shape is None:
-            os.environ.pop("OAI_DEMO_SHAPE", None)
-        else:
-            os.environ["OAI_DEMO_SHAPE"] = shape
-        out_dir = root / name
-        reset_launches(cuda_conv, cuda_kernels)
-        t0 = time.perf_counter()
-        try:
-            got = full_demo.main(["phantom", str(out_dir)])
-        finally:
-            os.environ.pop("OAI_DEMO_SHAPE", None)
-        wall = time.perf_counter() - t0
-        launches = read_launches(cuda_conv, cuda_kernels)
-        what = f"full demo ({name})"
-        check_full_demo_outputs(torch, got, out_dir, what)
-        check_bf16_routes(launches, what)
-        if launches["conv3d_cin1"] <= 0 or launches["conv3d_f32"] != FULL_DEMO_F32 \
-                or launches["point_triangle"] != FULL_DEMO_DISTANCE:
-            raise AssertionError(f"{what}: launches {launches}, want cin1 > 0, {FULL_DEMO_F32} f32 and "
-                                 f"{FULL_DEMO_DISTANCE} distance")
-        out[name] = {**{k: v for k, v in got.items() if k not in ("stages", "out_dir")},
-                     "stage_seconds": {k: v["seconds"] for k, v in got["stages"].items()}, "wall_s": wall,
-                     "launches": launches, "window_lo_hi": window}
-    got, ref, tol = out["shape80"], FULL_DEMO_JAX_CPU_80, FULL_DEMO_TOL_80
-    gaps = {}
-    for t in ("fc", "tc"):
-        gaps[f"{t}_points"] = (got[f"{t}_points"] - ref[f"{t}_points"]) / ref[f"{t}_points"]
-        gaps[f"{t}_mean_thickness"] = (got[f"{t}_mean_thickness"] - ref[f"{t}_mean_thickness"]) / \
-            ref[f"{t}_mean_thickness"]
-        gaps[f"{t}_coverage"] = got[f"{t}_coverage"] - ref[f"{t}_coverage"]
-        gaps[f"{t}_mapped_mean"] = (got[f"{t}_mapped_mean_mm"] - ref[f"{t}_mapped_mean_mm"]) / \
-            ref[f"{t}_mapped_mean_mm"]
-    bad = {k: v for k, v in gaps.items() if abs(v) > tol[k]}
-    if bad:
-        raise AssertionError(f"full demo at 80x192x192: {got} against the JAX package's CPU {ref}: gaps {bad} "
-                             f"beyond {tol}")
-    out["shape80"]["jax_cpu_gaps"] = gaps
+        out[name] = {**run_full_demo(torch, cuda_conv, cuda_kernels, root / name, shape, f"full demo ({name})"),
+                     "window_lo_hi": window}
+    out["shape80"]["jax_cpu_gaps"] = full_demo_gaps(out["shape80"], "full demo at 80x192x192")
+    out["spread"] = full_demo_spread(torch, cuda_conv, cuda_kernels, root, out["shape80"])
     return out
 
 
@@ -3365,9 +3437,16 @@ def main() -> int:
     t0 = time.perf_counter()
     examples["full_demo"] = example_full_demo(torch, cuda_conv, cuda_kernels)
     examples["full_demo_s"] = time.perf_counter() - t0
-    for name, r in examples["full_demo"].items():
+    for name in ("full", "shape80"):
+        r = examples["full_demo"][name]
         log(f"phase examples: full demo ({name}): stage seconds {json.dumps(r['stage_seconds'])}, wall "
             f"{r['wall_s']:.2f} s")
+    sp = examples["full_demo"]["spread"]
+    log(f"phase examples: (c) full demo at 80x192x192, knee moved by one ulp: "
+        + ", ".join(f"seed {r['seed']} TC {r['tc_mapped_mean_mm']!r} FC {r['fc_mapped_mean_mm']!r} mm in "
+                    f"{r['wall_s']:.2f} s" for r in sp["runs"])
+        + f"; card band {json.dumps(sp['band'])}, every run inside the CPU bands' span {sp['inside_cpu_span']} "
+          f"(card {card})")
     t0 = time.perf_counter()
     examples["nifti_demos"] = example_nifti_demos(torch, cuda_conv, cuda_kernels)
     examples["nifti_demos_s"] = time.perf_counter() - t0

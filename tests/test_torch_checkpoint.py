@@ -11,6 +11,7 @@ tolerance of 5e-2 of tests/test_torch_conv.py; f32 compute within 1e-4).
 """
 
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -147,18 +148,32 @@ def test_classwise_heads_present():
     _assert_trees_equal(TC.convert_torch_unet_state_dict(sd, spec), JC.convert_torch_unet_state_dict(sd, spec))
 
 
+def _raised_here(rec) -> list:
+    """The messages of the warnings the converters raise themselves. Both
+    warn with stacklevel=2, so theirs point at this file; a warning that JAX
+    raises while it compiles the converter's draws (a persistent-cache entry
+    that a sibling xdist worker is still writing, read back truncated)
+    points at JAX's own compiler."""
+    return [str(w.message) for w in rec if Path(w.filename) == Path(__file__)]
+
+
+def _missing_heads_converted(spec, sd):
+    with pytest.warns(UserWarning) as t_rec:
+        got = TC.convert_torch_unet_state_dict(sd, spec)
+    with pytest.warns(UserWarning) as j_rec:
+        want = JC.convert_torch_unet_state_dict(sd, spec)
+    return got, want, t_rec, j_rec
+
+
 def test_classwise_heads_missing_warn():
     """The same warning text and head shapes as the JAX package; the heads'
     values come from the port's seeded generator (not JAX's), so only the
     trunk is compared by value."""
     spec = JSPECS["UNet_light1"].replace(bias=True, classwise_heads=True)
     sd = _classwise_sd(spec, with_heads=False)
-    with pytest.warns(UserWarning) as t_rec:
-        got = TC.convert_torch_unet_state_dict(sd, spec)
-    with pytest.warns(UserWarning) as j_rec:
-        want = JC.convert_torch_unet_state_dict(sd, spec)
-    assert [str(w.message) for w in t_rec] == [str(w.message) for w in j_rec]
-    assert "missing per-class heads [0, 1]" in str(t_rec[0].message)
+    got, want, t_rec, j_rec = _missing_heads_converted(spec, sd)
+    assert _raised_here(t_rec) == _raised_here(j_rec) != []
+    assert "missing per-class heads [0, 1]" in _raised_here(t_rec)[0]
     heads = [got.pop(f"head{c}") for c in range(spec.n_classes)]
     for c, head in enumerate(heads):
         jhead = want.pop(f"head{c}")
@@ -169,6 +184,25 @@ def test_classwise_heads_missing_warn():
     with pytest.warns(UserWarning):  # an explicit generator seeded 0 draws the default heads
         again = TC.convert_torch_unet_state_dict(sd, spec, generator=torch.Generator().manual_seed(0))
     np.testing.assert_array_equal(again["head0"]["kernel"], heads[0]["kernel"])
+
+
+def test_classwise_heads_missing_warn_beside_cache_warnings(monkeypatch):
+    """Every persistent-cache read of JAX fails inside the recorded blocks, as
+    a truncated entry makes it: JAX warns from its compiler beside the
+    converter's own warning, and the converters' warnings still agree."""
+    from jax._src import compilation_cache
+
+    def unreadable(*args, **kwargs):
+        raise RuntimeError("truncated cache entry")
+
+    monkeypatch.setattr(compilation_cache, "get_executable_and_time", unreadable)
+    jax.clear_caches()
+    spec = JSPECS["UNet_light1"].replace(bias=True, classwise_heads=True)
+    sd = _classwise_sd(spec, with_heads=False)
+    _, _, t_rec, j_rec = _missing_heads_converted(spec, sd)
+    assert any("persistent compilation cache" in str(w.message) for w in j_rec)
+    assert _raised_here(t_rec) == _raised_here(j_rec) != []
+    assert "missing per-class heads [0, 1]" in _raised_here(j_rec)[0]
 
 
 def test_load_torch_checkpoint(tmp_path):
