@@ -32,7 +32,7 @@ from oai_analysis_2_tpu_torch.core.device import resolve_device
 from oai_analysis_2_tpu_torch.models.unet3d import UNet3D, UNetSpec
 from oai_analysis_2_tpu_torch.ops.resample import _trilinear_gather, clip_ties
 from oai_analysis_2_tpu_torch.utils.checkpoint import carry_params, export_params, load_checkpoint
-from oai_analysis_2_tpu_torch.utils.optim import batch_step
+from oai_analysis_2_tpu_torch.utils.optim import Adam, batch_step
 
 
 def _grid(axes, device) -> torch.Tensor:
@@ -401,9 +401,8 @@ class InstanceScale:
         self.lambda_reg, self.diffusion_weight = lambda_reg, diffusion_weight
         self.u_ab = torch.zeros(shape_s + (3,), dtype=torch.float32, device=dev, requires_grad=True)
         self.u_ba = torch.zeros(shape_s + (3,), dtype=torch.float32, device=dev, requires_grad=True)
-        # optax.adam's update, m_hat / (sqrt(v_hat) + eps), in normalized units
-        self.optimizer = torch.optim.Adam([self.u_ab, self.u_ba], lr=lr / float(max(shape_s)),
-                                          betas=(0.9, 0.999), eps=1e-8)
+        # optax.adam, in normalized units
+        self.optimizer = Adam([self.u_ab, self.u_ba], lr=lr / float(max(shape_s)), betas=(0.9, 0.999), eps=1e-8)
 
     def maps(self):
         return compose(self.base_ab, self.ident + self.u_ab), compose(self.base_ba, self.ident + self.u_ba)

@@ -7,8 +7,8 @@ Optax's `chain(clip_by_global_norm(clip_norm), adam(learning_rate))`
 bound to a list of leaves (JAX's `opt.init(params)`): each `step` clips the
 gradients in place, sets the learning rate from the schedule at the update
 count before the increment (Optax's `scale_by_learning_rate` state, so the
-first update uses the schedule's value at 0), and runs `torch.optim.Adam`,
-whose update m_hat / (sqrt(v_hat) + eps) is Optax's.
+first update uses the schedule's value at 0), and runs `Adam`, Optax's
+update m_hat / (sqrt(v_hat) + eps) with Optax's f32 bias corrections.
 
 `batch_step` runs one update of a loss averaged over a batch whose items
 run one after another (the JAX steps' `jax.vmap`).
@@ -19,6 +19,7 @@ from __future__ import annotations
 import math
 from typing import Callable, List, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 Schedule = Callable[[int], float]
@@ -63,6 +64,61 @@ def clip_by_global_norm_(params: Sequence[torch.Tensor], max_norm: float) -> tor
     return norm
 
 
+def bias_correction(decay: float, count: int) -> float:
+    """Optax's `1 - decay**count` as XLA rounds it: `decay` rounded to f32,
+    its power rounded once to f32, the difference in f32.
+
+    `torch.optim.Adam` takes it in double from the decimal decay, while
+    its moments decay by the f32 decay (0.999 in f32 is 0.99900001287):
+    at the counts of an instance run its v_hat comes out 1.3e-5 small and
+    each step 6.4e-6 long against Optax's."""
+    d = np.float32(decay)
+    return float(np.float32(1.0) - np.float32(np.float64(d) ** int(count)))
+
+
+class Adam(torch.optim.Optimizer):
+    """Optax's `adam(lr, b1, b2, eps)` (`scale_by_adam`, then
+    `scale_by_learning_rate`) as a torch optimizer:
+    mu = (1 - b1) g + b1 mu, nu = (1 - b2) g^2 + b2 nu, the bias
+    corrections of `bias_correction`, and
+    p += -lr (mu / bc1) / (sqrt(nu / bc2) + eps), in the parameters' dtype.
+    The state takes `torch.optim.Adam`'s keys (`step`, `exp_avg`,
+    `exp_avg_sq`)."""
+
+    def __init__(self, params, lr: float, betas=(0.9, 0.999), eps: float = 1e-8):
+        super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            b1, b2 = group["betas"]
+            for p in params:
+                state = self.state[p]
+                if not state:
+                    state["step"] = torch.tensor(0.0)
+                    state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                    state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                state["step"] += 1
+            count = int(self.state[params[0]]["step"])
+            grads = [p.grad for p in params]
+            mu = [self.state[p]["exp_avg"] for p in params]
+            nu = [self.state[p]["exp_avg_sq"] for p in params]
+            torch._foreach_mul_(mu, b1)
+            torch._foreach_add_(mu, grads, alpha=1 - b1)
+            torch._foreach_mul_(nu, b2)
+            torch._foreach_addcmul_(nu, grads, grads, value=1 - b2)
+            denom = torch._foreach_div(nu, bias_correction(b2, count))
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, group["eps"])
+            update = torch._foreach_div(mu, bias_correction(b1, count))
+            torch._foreach_div_(update, denom)
+            torch._foreach_add_(params, update, alpha=-group["lr"])
+        return None
+
+
 class Optimizer:
     """Adam over `params` with an optional global-norm clip before it; see
     the module docstring. `count` is Optax's update count."""
@@ -73,7 +129,7 @@ class Optimizer:
         self.schedule = learning_rate if callable(learning_rate) else (lambda count: learning_rate)
         self.clip_norm = clip_norm
         self.count = 0
-        self.adam = torch.optim.Adam(self.params, lr=self.schedule(0), betas=(b1, b2), eps=eps)
+        self.adam = Adam(self.params, lr=self.schedule(0), betas=(b1, b2), eps=eps)
 
     def require_grad(self) -> None:
         """Turn gradients on for the leaves this optimizer updates."""

@@ -128,3 +128,43 @@ def test_trace_holds_the_cpu_against_itself(tmp_path):
         assert h["maps_max_abs"] == 0.0 and h["cells_differ"] == 0 and h["steps_off_by_a_quarter"] == 0
         assert h["adam_alone_max_abs_in_steps"] == 0.0 and h["steps"] > 0
     assert report["handoff"]["4x8x8@2"]["t"] == 2
+
+
+def test_lr_sweep_summary():
+    """Per lr, each package's band and whether its runs agree within 1e-3
+    mm; the gap of the means against both spreads, and the lowest lr at
+    which it exceeds both."""
+    tool = load_tool()
+    runs = [{"package": p, "lr": lr, "err_mean_mm": v}
+            for lr, vals in ((0.1, {"jax": [1.0, 1.0004], "port": [1.0002, 1.0001]}),
+                             (1.2, {"jax": [1.0, 1.01], "port": [1.1, 1.12]}))
+            for p, vs in vals.items() for v in vs]
+    got = tool.lr_sweep(runs, ["jax", "port"], [0.1, 1.2])
+    low, high = got["per_lr"]["0.1"], got["per_lr"]["1.2"]
+    assert low["deterministic"] == {"jax": True, "port": True} and low["agree_within_tol"]
+    assert not low["gap_exceeds_spreads"]
+    assert high["deterministic"] == {"jax": False, "port": False} and "agree_within_tol" not in high
+    assert high["gap_exceeds_spreads"] and got["gap_opens_at_lr"] == 1.2
+    assert abs(high["gap_mm"] - 0.105) < 1e-9
+
+
+def test_port_with_all_of_jaxs_parts_is_jax_stepwise(tmp_path):
+    """`port+step+images+pyramid+finish` (the port's run with JAX's step,
+    grid images, pyramid and finish) lands on `jax_steps`'s error: nothing
+    else in the port's run moves it. Within 1e-6 mm, since each package
+    reads the error off its maps with its own pipeline (on the same maps
+    the two reads agree to 3e-7 mm). 16x32x32, two steps a scale, the
+    phantom moved to another base."""
+    tool = load_tool()
+    report = tool.main(["--packages", "jax_steps,port+step+images+pyramid+finish", "--runs", "1", "--workers", "2",
+                        "--threads", "1", "--base", "3", "--out", str(tmp_path / "parts.json"), "--", *SMALL])
+    by = {r["package"]: r for r in report["runs"]}
+    assert by["jax_steps"]["base"] == 3
+    assert abs(by["jax_steps"]["err_mean_mm"] - by["port+step+images+pyramid+finish"]["err_mean_mm"]) <= 1e-6
+
+
+def test_unknown_packages_are_refused():
+    tool = load_tool()
+    for bad in ("port+adam", "jax+step", "torch"):
+        with pytest.raises(SystemExit, match="unknown packages"):
+            tool.main(["--packages", bad, "--runs", "1", "--", *SMALL])

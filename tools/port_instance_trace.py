@@ -118,11 +118,11 @@ def loss_terms(p) -> tuple:
 
 
 def adam_update(p, grads, snap):
-    """One step of the optimizer `InstanceScale` makes (torch's Adam: the
-    foreach implementation on the card, the single-tensor one on the CPU)
-    from `snap`'s moments and `grads`: the change of (u_ab, u_ba)."""
+    """One step of the optimizer `InstanceScale` makes (`utils.optim.Adam`,
+    Optax's update) from `snap`'s moments and `grads`: the change of
+    (u_ab, u_ba)."""
     params = [p.u_ab.detach().clone().requires_grad_(True), p.u_ba.detach().clone().requires_grad_(True)]
-    opt = torch.optim.Adam(params, lr=p.optimizer.defaults["lr"], betas=(0.9, 0.999), eps=1e-8)
+    opt = type(p.optimizer)(params, lr=p.optimizer.defaults["lr"], betas=(0.9, 0.999), eps=1e-8)
     for q, g, name in zip(params, grads, ("u_ab", "u_ba")):
         q.grad = g.detach().to(q.device).clone()
         if snap["t"]:
