@@ -1,0 +1,9 @@
+"""Mean seconds of the pipeline's thickness stage a knee over the window's knees
+that ran outside the profiler (it slows the host), from
+`KneeResult.timings` (the program's stage timer, the card synchronized at
+the stage's end)."""
+
+
+def read(ctx):
+    xs = (ctx.get("stages") or {}).get("thickness")
+    return sum(xs) / len(xs) if xs else None
